@@ -14,11 +14,7 @@ import time
 
 import jax
 
-# Persistent XLA compilation cache: the crossing-backend programs take
-# minutes to compile on TPU; caching makes repeat bench invocations (and the
-# driver's end-of-round run) near-instant to warm up.
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from raycastworlds_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main():
@@ -51,6 +47,7 @@ def main():
     p.add_argument("--mesh", action="store_true")
     p.add_argument("--backend", type=str, default="")
     args = p.parse_args()
+    enable_compile_cache()
 
     if args.backend:
         jax.config.update("jax_platforms", args.backend)

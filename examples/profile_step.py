@@ -1,11 +1,16 @@
-"""Named per-op device-time breakdown of the flagship env step
-(VERDICT r4 #3: the ~19 ns/env base-step cost, attributed by trace).
+"""Named per-op device-time breakdown of one bench.py env workload.
 
-Runs the bench.py flagship program (4096 envs x 64 rays x 64 px, dense
-auto-reset, random actions) under ``jax.profiler``, then aggregates the
-device-side trace events by op name and prints the top offenders with
-per-env-step costs.  The scan body repeats every op ``steps`` times, so
+Runs the bench.py rollout program (default: the flagship, 4096 envs x 64
+rays x 64 px, dense auto-reset, random actions) under ``jax.profiler``, then
+aggregates the GPU-side trace events by op name and prints the top offenders
+with per-env-step costs.  The scan body repeats every op ``steps`` times, so
 one program execution yields a stable per-op sample.
+
+It also compiles one env step alone and prints its ``memory_analysis()``
+and every buffer of at least one crossing-candidate array's size
+(B x min(H, W) x R elements) that the compiled step materialises outside
+a fusion: an empty list means the raycaster's [B, H+W, R] candidate
+pipeline stays inside fusions.
 
 Usage: python examples/profile_step.py [--num-envs 4096 --steps 64 ...]
 """
@@ -17,21 +22,23 @@ import collections
 import glob
 import gzip
 import json
+import math
 import os
+import re
+import shutil
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from raycastworlds_tpu.utils.compile_cache import enable_compile_cache
 
 
 def aggregate_trace(log_dir: str):
     """Sum device-side complete events by name from the Perfetto JSON the
     profiler writes (no tensorboard dependency)."""
-    paths = sorted(glob.glob(os.path.join(log_dir, "**/*.trace.json.gz"),
+    paths = sorted(glob.glob(os.path.join(log_dir, "**/*trace.json.gz"),
                              recursive=True))
     if not paths:
         raise FileNotFoundError(f"no trace under {log_dir}")
@@ -44,10 +51,54 @@ def aggregate_trace(log_dir: str):
             pids[e["pid"]] = e["args"].get("name", "")
     agg, cnt = collections.Counter(), collections.Counter()
     for e in ev:
-        if e.get("ph") == "X" and "TPU" in pids.get(e["pid"], ""):
+        if e.get("ph") == "X" and "/device:GPU" in pids.get(e["pid"], ""):
             agg[e["name"]] += e.get("dur", 0)
             cnt[e["name"]] += 1
     return agg, cnt
+
+
+def large_buffers(hlo_text: str, min_elems: int):
+    """(computation, instruction, shape) of every array of at least
+    ``min_elems`` elements produced outside a fused computation, i.e. every
+    such array the compiled program writes to device memory."""
+    fused = set(re.findall(r"calls=%?([\w.\-]+)", hlo_text))
+    out, comp = [], None
+    for line in hlo_text.splitlines():
+        head = re.match(r"^(?:ENTRY )?%?([\w.\-]+) .*\{\s*$", line)
+        if head:
+            comp = head.group(1)
+            continue
+        if comp is None or comp in fused:
+            continue
+        m = re.match(r"\s*(?:ROOT )?%?([\w.\-]+) = (\w+)\[([\d,]*)\]", line)
+        if m and m.group(3):
+            dims = [int(d) for d in m.group(3).split(",")]
+            if math.prod(dims) >= min_elems:
+                out.append((comp, m.group(1), f"{m.group(2)}{dims}"))
+    return out
+
+
+def step_memory(env):
+    """Memory analysis of one compiled env step, and its large buffers."""
+    import jax.numpy as jnp
+
+    cfg = env.cfg
+    state, _ = jax.jit(env._reset_impl)(jax.random.PRNGKey(0))
+    action = jnp.zeros(
+        (env.num_envs,) + getattr(env.game, "action_shape", ()), jnp.int32
+    )
+    compiled = jax.jit(env._step_impl).lower(state, action).compile()
+    mem = compiled.memory_analysis()
+    cand = env.num_envs * min(cfg.H, cfg.W) * cfg.num_rays
+    return {
+        "temp_bytes": mem.temp_size_in_bytes,
+        "argument_bytes": mem.argument_size_in_bytes,
+        "output_bytes": mem.output_size_in_bytes,
+        "candidate_array_elems": cand,
+        "buffers_at_least_candidate_size": [
+            list(b) for b in large_buffers(compiled.as_text(), cand)
+        ],
+    }
 
 
 def main():
@@ -61,8 +112,11 @@ def main():
     p.add_argument("--raycast", type=str, default="auto")
     p.add_argument("--reset-budget", type=int, default=0)
     p.add_argument("--top", type=int, default=25)
-    p.add_argument("--trace-dir", type=str, default="/tmp/rcw_trace_step")
+    p.add_argument("--trace-dir", type=str, default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "traces", "step"))
     args = p.parse_args()
+    enable_compile_cache()
 
     sys.path.insert(0, os.getcwd())
     from bench import build_env
@@ -79,8 +133,8 @@ def main():
     state, acc = run(state, key)
     float(acc)  # compile + settle
 
-    os.system(f"rm -rf {args.trace_dir}")
-    jax.profiler.start_trace(args.trace_dir)
+    shutil.rmtree(args.trace_dir, ignore_errors=True)
+    jax.profiler.start_trace(args.trace_dir, create_perfetto_trace=True)
     state, acc = run(state, key)
     float(acc)
     jax.profiler.stop_trace()
@@ -104,7 +158,9 @@ def main():
             "pct": round(100 * us / tot_inner, 1),
         })
     print(json.dumps({
+        "device": jax.devices()[0].device_kind,
         "config": vars(args),
+        "step_memory": step_memory(env),
         "total_inner_ms": round(tot_inner / 1e3, 2),
         "ns_per_env_step_total": round(tot_inner * 1e3 / denom, 2),
         "ops": rows,

@@ -2,8 +2,8 @@
 //
 // The reference's only native dependency is the minifb C windowing library,
 // used exclusively by the interactive `play!` loop
-// (/root/reference/src/single_room.jl:488-568 via MiniFB.jl).  TPU hosts are
-// headless, so the TPU-native equivalent is this small C++ library that
+// (/root/reference/src/single_room.jl:488-568 via MiniFB.jl).  Accelerator
+// hosts are usually headless, so the equivalent here is this small C++ library that
 // turns device frames into things a headless host can show:
 //   * PPM/raw writers for 0x00RRGGBB uint32 frames,
 //   * a fast ANSI half-block compositor (2 vertical pixels per character
@@ -13,11 +13,11 @@
 // Exposed with a C ABI and loaded from Python via ctypes (no pybind11).
 //
 // Windowed path: when a display is available, rcw_window_* opens a real
-// X11 window (the TPU-native equivalent of the reference's minifb window,
+// X11 window (the equivalent of the reference's minifb window,
 // /root/reference/src/single_room.jl:503-565) and blits 0x00RRGGBB frames
 // with XPutImage.  libX11 is loaded with dlopen at RUNTIME — no X11
 // development headers are required to build, and hosts without a display
-// (every TPU pod host) degrade cleanly to the headless paths above.
+// (most accelerator hosts) degrade cleanly to the headless paths above.
 
 #include <cstdint>
 #include <cstdio>

@@ -1,6 +1,6 @@
-"""raycastworlds_tpu — a TPU-native raycast world engine.
+"""raycastworlds_tpu — a batched, device-resident raycast world engine.
 
-A from-scratch JAX/XLA/Pallas re-conception of the capability surface of
+A from-scratch JAX/XLA re-conception of the capability surface of
 RayCastWorlds.jl (first-person grid-world RL environments with Wolfenstein
 style raycast rendering), designed batched, functional and device-resident:
 
@@ -10,7 +10,7 @@ style raycast rendering), designed batched, functional and device-resident:
   Maze (procedural multi-room), MultiGoalRoom (K collectable goals),
   DynamicRoom (moving obstacle blocks), LockedRoom (key unlocks the
   door line to the goal — two-stage sparse reward)
-* ``ops``      — raycast (scan + Pallas DDA), collision, render, sampling
+* ``ops``      — raycast (crossing + scan DDA), collision, render, sampling
 * ``parallel`` — mesh sharding, on-device rollouts, PPO learner
 * ``oracle``   — NumPy scalar reference implementation for parity tests
 * ``Env``      — batched jitted auto-resetting environment API

@@ -38,8 +38,7 @@ BLOCK_DIM_J = 0x000000C0
 #
 # The whole render vocabulary above is 12 DISTINCT 0x00RRGGBB values — the
 # scene is a palette image by construction, so a uint8 index carries exactly
-# the same information as the uint32 pixel at 1/4 the HBM traffic (every
-# headline throughput row is observation-bandwidth-bound; docs/RESULTS.md).
+# the same information as the uint32 pixel at 1/4 the memory traffic.
 # Index order is frozen: parity tests and trained policies depend on it.
 # ---------------------------------------------------------------------------
 

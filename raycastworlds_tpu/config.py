@@ -21,18 +21,6 @@ from typing import Any, Tuple
 
 import numpy as np
 
-def _default_backend_is_tpu() -> bool:
-    """True when jax's default platform is TPU (lazy import: config stays
-    importable without initializing a backend; the probe runs only when an
-    'auto' config is first resolved, i.e. at trace time)."""
-    try:
-        import jax
-
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
 # Object channels of the tile map (reference: /root/reference/src/single_room.jl:16-18).
 NUM_OBJECTS = 2
 WALL = 0
@@ -56,7 +44,7 @@ HIT_DIM_J = 1
 
 @dataclasses.dataclass(frozen=True)
 class EnvConfig:
-    """Mirrors the reference's 12 constructor kwargs exactly, plus TPU knobs.
+    """Mirrors the reference's 12 constructor kwargs exactly, plus engine knobs.
 
     World kwargs (reference /root/reference/src/single_room.jl:42-53):
     """
@@ -75,16 +63,16 @@ class EnvConfig:
     camera_height_tile_wu: float = 1.0
     height_camera_view_pu: int = 256
 
-    # TPU-native knobs (no reference equivalent).
+    # Engine knobs (no reference equivalent).
     # Fixed DDA trip count; <=0 means use the map-diameter bound H+W, which is
     # sufficient for any map with solid border walls.
     max_dda_steps: int = 0
     # Observation produced by `step`/`reset`:
     #   "camera_u32" : [H_pu, num_rays] uint32 0x00RRGGBB (reference parity,
     #                  RLBase.state at /root/reference/src/single_room.jl:576)
-    #   "camera_rgb" : [H_pu, num_rays, 3] uint8 (layout-bound at high res —
-    #                  max-throughput RGB consumers should take camera_u32
-    #                  and unpack consumer-side; docs/RESULTS.md round 3)
+    #   "camera_rgb" : [H_pu, num_rays, 3] uint8 (channels-minor layout —
+    #                  max-throughput RGB consumers can take camera_u32
+    #                  and unpack consumer-side)
     #   "camera_gray": [H_pu, num_rays] float32 in [0, 1]
     #   "camera_pal8": [H_pu, num_rays] uint8 palette index into
     #                  EnvConfig.palette_np — LOSSLESS (the scene is 12
@@ -104,54 +92,32 @@ class EnvConfig:
     obs_type: str = "camera_u32"
     # Raycast backend:
     #   "scan"     — lax.scan masked DDA (general maps; bit-exact parity path)
+    #   "scan_flat" — the same DDA over flattened [B*R] lanes (batch path;
+    #                bit-identical to "scan")
     #   "analytic" — closed-form border+goal intersection (SingleRoom-shaped
     #                maps only; fastest; ~1e-6 numerics vs DDA, not bit-exact)
     #   "crossing" — loop-free parallel-crossing DDA (general maps; min over
     #                all H+W grid-line crossings — no scan carries, fuses
     #                with the renderer; own oracle parity mode, hit tiles
     #                agree with scan except exact-corner float coincidences)
-    #   "crossing_kernel" — the crossing formulation as a Pallas kernel:
-    #                the candidate loop runs in-kernel with the running min
-    #                in registers, so the [N, R] candidate arrays never
-    #                touch HBM (the measured wall at large ray counts,
-    #                docs/RESULTS.md round 4).  Batch path only (single-env
-    #                viewer casts fall back to XLA crossing); same closed
-    #                forms — Mosaic FMA contraction of the cross coordinate
-    #                can flip entered tiles only at exact-corner float
-    #                coincidences (empirically exact vs crossing on every
-    #                state tested; the parity GUARANTEE stays with
-    #                "crossing")
-    #   "crossing_kernel_fused" — crossing_kernel plus the pal8 camera
-    #                compositing INSIDE the kernel (single-goal flat pal8
-    #                frames only; other obs forms take the split kernel).
-    #                Measured: +5% at config-3, -9% at reference-default vs
-    #                the split kernel (docs/RESULTS.md round 4) — kept as
-    #                an explicit option, not the recommendation
-    #   "pallas"   — Pallas DDA kernel (same math as scan; cast only)
-    #   "fused"    — Pallas DDA + camera-render in ONE kernel (kept as an
-    #                option; measured SLOWER than crossing/scan on v5e and
-    #                ulp-level pixel differences on TPU hardware from Mosaic
-    #                FMA contraction — docs/RESULTS.md); non-camera
-    #                consumers (depth/top view) fall back to scan
-    #   "auto"     — best supported backend for the game/platform
+    #   "auto"     — "crossing"
     raycast_backend: str = "auto"
-    # Unroll factor for the scan DDA (TPU: higher amortizes loop overhead;
-    # CPU tests keep 1 for fast compiles).
+    # Unroll factor for the scan DDA (higher amortizes loop overhead; CPU
+    # tests keep 1 for fast compiles).
     dda_unroll: int = 1
     # Episode time limit: > 0 enables truncation — envs reaching this many
     # steps are auto-reset (reported via StepResult.done and info["truncated"];
     # the goal-termination flag stays in info["terminated"]).  0 = unlimited,
     # the reference's behavior (episodes only end on goal contact).
     max_episode_steps: int = 0
-    # Stop the DDA while-loop once all rays have hit (identical results but
-    # measured SLOWER on v5e — the while_loop blocks XLA pipelining and adds
-    # a cross-batch reduce per iteration; kept as an option for sparse
-    # scenes with far-above-typical trip counts).
+    # Stop the DDA while-loop once all rays have hit (identical results; the
+    # while_loop adds a cross-batch reduce per iteration; an option for
+    # sparse scenes with far-above-typical trip counts).
     dda_early_exit: bool = False
     # Procedural wall texturing (no reference equivalent — the reference's
     # walls are flat two-shade colors, single_room.jl:417-429).  Textures are
     # computed arithmetically from the wall-face hit coordinate — no texture
-    # memory, no gathers, pure VPU work:
+    # memory, no gathers, elementwise work only:
     #   "none"    — flat shading (bit-exact reference parity path)
     #   "checker" — (u + v) parity checkerboard
     #   "brick"   — running-bond brick courses with mortar lines
@@ -173,8 +139,8 @@ class EnvConfig:
     # /root/reference/src/single_room.jl:42-44): float dtype of positions,
     # ray math and render arithmetic.  "float64" requires JAX x64 mode
     # (jax.experimental.enable_x64 or jax_enable_x64) and is CPU-oriented —
-    # TPUs emulate f64 slowly.  Parity oracles are float32; f64 configs are
-    # covered by invariant tests, not bit-parity.
+    # accelerators run f64 far slower than f32.  Parity oracles are float32;
+    # f64 configs are covered by invariant tests, not bit-parity.
     dtype: str = "float32"
 
     def __post_init__(self):
@@ -204,8 +170,7 @@ class EnvConfig:
                     "2 factors and always fit)"
                 )
         if self.raycast_backend not in (
-            "scan", "scan_flat", "crossing", "crossing_kernel",
-            "crossing_kernel_fused", "analytic", "pallas", "fused", "auto",
+            "scan", "scan_flat", "crossing", "analytic", "auto",
         ):
             raise ValueError(f"unknown raycast_backend: {self.raycast_backend}")
         if self.wall_texture not in ("none", "checker", "brick", "xor"):
@@ -244,42 +209,17 @@ class EnvConfig:
             return self.max_dda_steps
         return self.height_tile_map_tu + self.width_tile_map_tu
 
-    # Auto-dispatch crossover (measured, docs/RESULTS.md round 5): the
-    # Pallas crossing kernel wins at >= 256 rays, where the XLA crossing's
-    # [N, R] candidate intermediates spill to HBM (+51% config-3, +27%
-    # reference-default); below that XLA fuses cast+render and wins.  Maps
-    # with more than this many grid-line candidates (H + W) stay on XLA
-    # crossing.
-    KERNEL_MIN_RAYS = 256
-    KERNEL_MAX_CANDIDATES = 96
-
     @property
     def resolved_raycast_backend(self) -> str:
-        """'auto' resolved to a concrete general-map backend.
+        """'auto' resolved to a concrete backend, from the config alone.
 
-        Shape-aware dispatch (docs/RESULTS.md rounds 4-5): on TPU, camera
-        resolutions of >= KERNEL_MIN_RAYS rays with at most
-        KERNEL_MAX_CANDIDATES grid-line candidates take the Pallas
-        ``crossing_kernel`` (bit-exact vs XLA crossing on every state fuzzed
-        on hardware; the parity GUARANTEE stays with "crossing").  Everything
-        else — small ray counts, candidate-heavy maps, CPU, float64,
-        continuous headings — takes XLA ``crossing``: the fastest XLA
-        general-map backend, parity-pinned against its own scalar-oracle and
-        C++-engine modes.  'scan' remains available as the
-        reference-sequential-semantics path.
+        'auto' is XLA ``crossing``: the fastest general-map backend,
+        parity-pinned against its own scalar-oracle and C++-engine modes.
+        'scan' remains available as the reference-sequential-semantics path.
         """
-        if self.raycast_backend != "auto":
-            return self.raycast_backend
-        if (
-            self.num_rays >= self.KERNEL_MIN_RAYS
-            and self.height_tile_map_tu + self.width_tile_map_tu
-            <= self.KERNEL_MAX_CANDIDATES
-            and self.dtype == "float32"
-            and not self.continuous_heading
-            and _default_backend_is_tpu()
-        ):
-            return "crossing_kernel"
-        return "crossing"
+        if self.raycast_backend == "auto":
+            return "crossing"
+        return self.raycast_backend
 
     @property
     def obs_shape(self) -> Tuple[int, ...]:
@@ -310,7 +250,7 @@ class EnvConfig:
 
     # ------------------------------------------------------------------
     # Host-side constants (computed in float64 then cast, so the embedded
-    # constants are bit-identical across CPU/TPU backends — important for the
+    # constants are bit-identical across CPU/GPU backends — important for the
     # fixed-seed parity guarantee; the reference computes the same LUT at
     # construction, /root/reference/src/single_room.jl:65-69).
     # ------------------------------------------------------------------
@@ -362,13 +302,6 @@ class EnvConfig:
         un = first[:, None, :] + t * (last - first)[:, None, :]   # [D, R, 2]
         un /= np.linalg.norm(un, axis=-1, keepdims=True)
         return un.astype(self.float_dtype)
-
-    @functools.cached_property
-    def ray_fan_lut_flipped(self) -> np.ndarray:
-        """``ray_fan_lut`` with the ray axis reversed — the camera mirror
-        (ref :431, column ``k = R-1-i``) baked into the fan order so the
-        fused render kernel writes image columns in natural order."""
-        return np.ascontiguousarray(self.ray_fan_lut[:, ::-1, :])
 
     @functools.cached_property
     def palette_np(self) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Batched environment API — the RLBase-adapter analog, TPU-native.
+"""Batched environment API — the RLBase-adapter analog.
 
 The reference adapts its game to ReinforcementLearningBase with a thin
 wrapper (/root/reference/src/rlbase.jl:1-7,
@@ -201,11 +201,10 @@ class Env:
         ``pending_reset`` set and stay frozen.
 
         Selection is prefix-count compaction, not ``top_k``: an inclusive
-        prefix over the needy mask (two small MXU matvecs, ops/sampling
+        prefix over the needy mask (two small matvecs, ops/sampling
         ``_prefix_count``) gives each needy env its compacted slot directly,
         where ``top_k`` lowers to a full [B] sort every step.  Same envs
-        selected (stable-top-k over a 0/1 score = first K needy by index);
-        measured ~0.4 ms/step cheaper at 32k envs.
+        selected (stable-top-k over a 0/1 score = first K needy by index).
         """
         from .ops.sampling import _prefix_count
 

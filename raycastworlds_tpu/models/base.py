@@ -204,13 +204,7 @@ class Game:
             return render.u32_to_rgb(img) if cfg.obs_type == "top_rgb" else img
         return self.observe_from_hits_single(state, self.cast_single(state))
 
-    # -- batch-level entry points (Env uses these; the Pallas backend casts
-    # the whole batch in one fused kernel instead of a vmapped per-env scan) -
-
-    def _use_pallas(self) -> bool:
-        # On CPU the kernel runs in Pallas interpreter mode (tests); on TPU
-        # it compiles to a fused Mosaic kernel.
-        return self.cfg.raycast_backend == "pallas"
+    # -- batch-level entry points (Env uses these) -----------------------
 
     def _packed_maps_batch(self, state: EnvState):
         cfg = self.cfg
@@ -226,128 +220,23 @@ class Game:
 
     def cast_batch(self, state: EnvState) -> raycast.RayHits:
         cfg = self.cfg
-        if self._use_analytic():
+        if cfg.raycast_backend != "scan_flat":
             return jax.vmap(self.cast_single)(state)
-        if (
-            cfg.resolved_raycast_backend
-            in ("crossing_kernel", "crossing_kernel_fused")
-            and not cfg.continuous_heading
-            # the kernel bakes f32 out_shapes/constants; f64 configs fall
-            # back to XLA crossing instead of hitting an opaque Mosaic
-            # dtype error (mirrors _use_fused's guard)
-            and cfg.dtype == "float32"
-        ):
-            b = state.pos_wu.shape[0]
-            r = cfg.num_rays
-            if b % 8 == 0 and (r <= 512 or r % 128 == 0):
-                from ..ops import raycast_crossing_kernel as rck
-
-                _, obstacle_words = self._packed_maps_batch(state)
-                dirs = lut.take_rows(
-                    jnp.asarray(cfg.ray_fan_lut), state.dir_au
-                )
-                hit_tu, hit_dim, dist = rck.cast_rays_crossing_kernel(
-                    obstacle_words, (cfg.H, cfg.W), state.pos_wu, dirs,
-                    interpret=jax.default_backend() != "tpu",
-                )
-                return raycast.RayHits(
-                    ray_dirs=dirs, hit_tu=hit_tu, hit_dim=hit_dim,
-                    dist_wu=dist,
-                )
-            # batch shape the kernel can't block -> XLA crossing fallback
-            return jax.vmap(self.cast_single)(state)
-        if not (self._use_pallas() or cfg.raycast_backend == "scan_flat"):
-            return jax.vmap(self.cast_single)(state)
+        # flattened [B*R]-lane DDA; bit-identical to the vmapped scan.
         _, obstacle_words = self._packed_maps_batch(state)
         dirs = lut.take_rows(jnp.asarray(cfg.ray_fan_lut), state.dir_au)  # [B, R, 2]
-        if self._use_pallas():
-            from ..ops import raycast_pallas
-
-            b = dirs.shape[0]
-            blk = 128
-            while b % blk:
-                blk //= 2
-            hit_tu, hit_dim, dist = raycast_pallas.cast_rays_pallas_batched(
-                obstacle_words, (cfg.H, cfg.W), state.pos_wu, dirs,
-                cfg.dda_steps, block_envs=blk,
-            )
-        else:
-            # flattened [B*R]-lane DDA; bit-identical to the vmapped scan but
-            # measured slower on v5e (the broadcast packed-words operand gets
-            # re-read every iteration) — kept as an explicit option.
-            hit_tu, hit_dim, dist = raycast.cast_rays_scan_flat(
-                obstacle_words, (cfg.H, cfg.W), state.pos_wu, dirs,
-                cfg.dda_steps, unroll=cfg.dda_unroll,
-            )
+        hit_tu, hit_dim, dist = raycast.cast_rays_scan_flat(
+            obstacle_words, (cfg.H, cfg.W), state.pos_wu, dirs,
+            cfg.dda_steps, unroll=cfg.dda_unroll,
+        )
         return raycast.RayHits(
             ray_dirs=dirs, hit_tu=hit_tu, hit_dim=hit_dim, dist_wu=dist
-        )
-
-    def _use_fused(self) -> bool:
-        """Fused DDA+render kernel: camera observations only, flat shading
-        (textures stay on the scan path until ported into the kernel), and
-        float32 worlds only — the kernel bakes float32 num/denom constants,
-        so an f64 config silently loses the documented scan equivalence."""
-        return (
-            self.cfg.raycast_backend == "fused"
-            and self.cfg.obs_type in ("camera_u32", "camera_rgb", "camera_gray")
-            and self.cfg.wall_texture == "none"
-            and self.cfg.dtype == "float32"
-        )
-
-    def _use_kernel_pal8(self, state: EnvState) -> bool:
-        """Fused cast+render pal8 path of the crossing kernel: single-goal
-        flat-shaded pal8 camera frames only (the slab color is goal-vs-wall
-        by tile equality in-kernel); everything else renders in XLA."""
-        cfg = self.cfg
-        b = state.pos_wu.shape[0]
-        return (
-            cfg.raycast_backend == "crossing_kernel_fused"
-            and cfg.obs_type == "camera_pal8"
-            and cfg.wall_texture == "none"
-            and cfg.dtype == "float32"
-            and not cfg.continuous_heading
-            and state.goal_words is None
-            and self._block_words_batch(state) is None
-            and b % 8 == 0
-            and (cfg.num_rays <= 512 or cfg.num_rays % 128 == 0)
         )
 
     def observe_batch(self, state: EnvState) -> jax.Array:
         cfg = self.cfg
         if cfg.obs_type in ("top_u32", "top_rgb"):
             return jax.vmap(self.observe_single)(state)
-        if self._use_kernel_pal8(state):
-            from ..ops import raycast_crossing_kernel as rck
-
-            _, obstacle_words = self._packed_maps_batch(state)
-            dirs = lut.take_rows(
-                jnp.asarray(cfg.ray_fan_lut_flipped), state.dir_au
-            )
-            pdir = lut.take_rows(
-                jnp.asarray(cfg.directions_wu), state.dir_au
-            )
-            return rck.cast_render_pal8_kernel(
-                obstacle_words, (cfg.H, cfg.W), state.pos_wu, dirs, pdir,
-                state.goal_tu, cfg.height_camera_view_pu,
-                float(cfg.float_dtype(cfg.camera_height_tile_wu * cfg.num_rays)),
-                float(cfg.float_dtype(2.0 * cfg.semi_field_of_view_wu)),
-                interpret=jax.default_backend() != "tpu",
-            )
-        if self._use_fused():
-            from ..ops import render_fused
-
-            wall_words, obstacle_words = self._packed_maps_batch(state)
-            block_words = self._block_words_batch(state)
-            img = render_fused.render_camera_fused(
-                cfg, obstacle_words, wall_words, state.pos_wu, state.dir_au,
-                block_words=block_words,
-            )
-            if cfg.obs_type == "camera_rgb":
-                return render.u32_to_rgb(img)
-            if cfg.obs_type == "camera_gray":
-                return render.u32_to_gray(img)
-            return img
         hits = self.cast_batch(state)
         return jax.vmap(self.observe_from_hits_single)(state, hits)
 

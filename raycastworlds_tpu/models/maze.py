@@ -2,7 +2,7 @@
 (BASELINE config 4).
 
 No reference equivalent.  Classic maze generators (DFS backtracker, Kruskal)
-are inherently sequential; the TPU-native choice is the *binary-tree* maze:
+are inherently sequential; the batched choice is the *binary-tree* maze:
 every cell independently carves a passage north or west (edge cells have no
 choice), which yields a perfect maze — all cells connected, no cycles — from
 one vectorized Bernoulli draw, no loops at all.  "Multi-room" then carves K

@@ -67,8 +67,7 @@ class MultiGoalRoom(Game):
         # closed-form interior sampler (bit-identical to the old dense
         # masked-categorical chain; dense auto-reset recomputes every env's
         # reset every step, so the O(K^2) scalar form vs O(K * H*W) dense
-        # mask/prefix work is the difference between reset-bound and
-        # obs-roofline-bound throughput — docs/RESULTS.md round 3).
+        # mask/prefix work keeps the reset from dominating the step).
         gkeys = jax.random.split(k_goals, cfg.num_goals)
         first_goal = None
         tiles = []

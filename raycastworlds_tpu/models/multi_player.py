@@ -2,7 +2,7 @@
 
 No reference equivalent — the reference is strictly single-player
 (/root/reference/src/single_room.jl:21-40 has one position/direction).
-TPU-native multi-agent re-conception: the per-env state carries player
+Batched multi-agent re-conception: the per-env state carries player
 AXES (``pos_wu[P, 2]``, ``dir_au[P]``, ``reward[P]``) instead of per-player
 structs, every per-player computation is a vectorized axis over the same
 branch-free kernels the single-player families use, and the whole P-player

@@ -31,11 +31,9 @@ class RandomRoomConfig(EnvConfig):
     # worst-case bound H*W/2 (any path).  A budget of ~2*(H+W) covers all
     # but serpentine paths, and under-iteration only SHRINKS the spawn set
     # (spawns stay reachable) — it never breaks the reachability guarantee.
-    # DECISION (round 4, closes roadmap #7): the default STAYS at the exact
-    # H*W/2 bound — at the budgeted-reset configs that matter the smaller
-    # budget measured a no-op (1.837M vs 1.830M steps/s at BASELINE
-    # config 3, docs/RESULTS.md round 3), so the default keeps the exact
-    # guarantee and throughput-tuned workloads opt in via this knob.
+    # The default stays at the exact H*W/2 bound, which keeps the exact
+    # guarantee; throughput-tuned workloads opt in to fewer iterations via
+    # this knob.
     flood_iters: int = -1
     # Disable the reachability mask entirely (spawn on any empty tile;
     # unreachable goals become possible — episodes then only end by caller

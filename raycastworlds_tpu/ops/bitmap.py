@@ -1,11 +1,10 @@
 """Bit-packed boolean grids for gather-free occupancy lookups.
 
-TPU has no fast hardware gather: a dynamic ``map[idx]`` per DDA iteration
-lowers to a slow serialized gather.  Tile maps are tiny (H*W <= a few hundred
-bits), so the whole obstacle map packs into a handful of uint32 lanes that
-live in vector registers.  A lookup is then a short select-chain over the
-words plus a per-lane variable shift — pure VPU work that XLA fuses straight
-into the DDA loop.  This replaces the reference's ``obstacle_map[i, j]``
+Tile maps are tiny (H*W <= a few hundred bits), so the whole obstacle map
+packs into a handful of uint32 words that stay in registers.  A lookup is
+then a short select-chain over the words plus a per-element variable shift —
+elementwise work that XLA fuses straight into the DDA loop, with no memory
+gather per DDA iteration.  This replaces the reference's ``obstacle_map[i, j]``
 inner-loop load (RayCaster DDA contract, /root/reference/src/single_room.jl:223).
 """
 
@@ -103,8 +102,7 @@ def lookup_bit(words: jax.Array, idx: jax.Array) -> jax.Array:
     if nw == 1:
         w = words[0]
     else:
-        # select-chain over the words: nw multiply-adds on the VPU,
-        # no gather.
+        # select-chain over the words: nw selects and adds, no gather.
         sel = word_idx[..., None] == jnp.arange(nw, dtype=jnp.int32)
         w = jnp.sum(jnp.where(sel, words, jnp.uint32(0)), axis=-1)
     return ((w >> bit_idx) & jnp.uint32(1)).astype(jnp.bool_)

@@ -6,7 +6,7 @@ reachability mask so goals are always attainable; a host-side BFS would break
 the jit boundary, so this is a fixed-iteration 4-neighbor dilation —
 ``H*W/2`` iterations upper-bound any shortest path on an HxW grid (actually
 H*W suffices for any path; H*W/2+1 for 4-connectivity diameter), each
-iteration a couple of shifts and ANDs on the VPU.
+iteration a couple of shifts and ANDs.
 """
 
 from __future__ import annotations

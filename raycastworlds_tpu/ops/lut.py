@@ -1,13 +1,11 @@
-"""LUT row lookup as a one-hot matmul.
+"""Per-env row lookup into the host-precomputed heading tables.
 
-TPU has no fast hardware gather: ``table[idx]`` for a per-env index lowers
-to a serialized gather that device traces showed costing milliseconds per
-rollout even for a [128, 2] table (and poisoning downstream layouts).  A
-one-hot matrix product against the table runs on the MXU instead and is
-*bit-exact*: each output row sums exactly one ``1.0 * x`` term plus zeros
-(0/1 weights and zero-addition are exact in float32, including under the
-TPU's 3-pass bfloat16 matmul decomposition, which represents float32
-operands exactly).
+The direction and ray-fan LUTs (``EnvConfig.directions_wu`` /
+``ray_fan_lut``) are indexed by each env's integer heading.  The lookup is a
+plain gather: it copies table entries bit for bit on every backend, which the
+fixed-seed parity with the scalar oracles depends on.  (A one-hot matrix
+product would be exact only at full float32 precision; GPU matmuls may run in
+TF32 by default and round every entry to a 10-bit mantissa.)
 """
 
 from __future__ import annotations
@@ -17,10 +15,6 @@ import jax.numpy as jnp
 
 
 def take_rows(table: jax.Array, idx: jax.Array) -> jax.Array:
-    """``table[idx]`` for float tables: table f32[N, ...], idx i32[...] ->
-    f32[idx.shape + table.shape[1:]]."""
-    n = table.shape[0]
-    flat = table.reshape(n, -1)
-    oh = jax.nn.one_hot(idx, n, dtype=flat.dtype)
-    out = jnp.matmul(oh, flat, preferred_element_type=flat.dtype)
-    return out.reshape(idx.shape + table.shape[1:])
+    """``table[idx]``: table [N, ...], idx int[...] ->
+    [idx.shape + table.shape[1:]].  Headings are always in [0, N)."""
+    return jnp.take(table, idx, axis=0, mode="clip")

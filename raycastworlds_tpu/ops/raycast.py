@@ -8,16 +8,14 @@ ray to the hit face), and generates the ray fan by *linear interpolation
 across the camera plane* (not angular) at
 /root/reference/src/single_room.jl:213-221.
 
-TPU-native re-conception:
+Batched re-conception:
 * all rays of an env march in lockstep as [R]-shaped vectors under a fixed
   trip count (map diameter H+W suffices for maps with solid border walls),
   with a hit mask freezing finished rays — no data-dependent control flow,
   fully vmappable and XLA-fusable;
 * the per-iteration occupancy test reads a *bit-packed* obstacle map held in
-  vector registers (ops/bitmap.py) instead of doing a hardware gather —
-  gathers are the serialized slow path on TPU;
+  registers (ops/bitmap.py) with shifts and masks, not a memory gather;
 * the ray fan is a precomputed per-heading LUT (EnvConfig.ray_fan_lut).
-A fused Pallas kernel with the same contract lives in raycast_pallas.py.
 """
 
 from __future__ import annotations
@@ -189,10 +187,8 @@ def cast_rays_scan_flat(
 
     Identical arithmetic (and therefore bit-identical results) to vmapping
     :func:`cast_rays_scan`, but the working arrays are 1-D over all rays of
-    all envs, so the VPU's 128-lane tiles are fully occupied even when
-    ``num_rays`` is not a multiple of 128 (a [B, 64] layout wastes half of
-    every tile).  The per-env packed words broadcast to per-lane operands
-    once, hoisted out of the march loop.
+    all envs.  The per-env packed words broadcast to per-ray operands once,
+    hoisted out of the march loop.
     """
     b, r, _ = ray_dirs.shape
     nw = obstacle_words.shape[-1]
@@ -294,13 +290,11 @@ def _crossing_axis(
     frac_sel = jnp.where(d_main < 0, frac, 1.0 - frac)       # [R]
     ad = jnp.abs(d_main)                                     # [R]
 
-    # Layout: candidates on the SUBLANE axis, rays on the LANE axis — [N, R]
-    # keeps the wide ray dimension in the VPU's 128-lane minor axis (an
-    # [R, N] layout puts the 8-16-wide candidate axis there and wastes ~90%
-    # of every tile).
+    # Layout: [N, R] keeps the wide ray dimension minor and the 8-64-wide
+    # candidate axis major.
     #
     # t = (frac_sel + k) / |d| — deliberately add-then-DIVIDE: the obvious
-    # ``side0 + k*delta`` is a mul feeding an add, which LLVM/Mosaic contract
+    # ``side0 + k*delta`` is a mul feeding an add, which LLVM may contract
     # into an FMA underneath any HLO-level pinning, breaking 1-ulp parity
     # with the scalar oracles at far hits.  There is no fused divide-add, so
     # this expression rounds identically everywhere.
@@ -340,12 +334,11 @@ def _crossing_axis(
         m_plus = jnp.clip(main0 + (ks + 1), 0, size_main - 1)    # [N]
         m_minus = jnp.clip(main0 - (ks + 1), 0, size_main - 1)   # [N]
         iota = jnp.arange(size_main, dtype=jnp.int32)
-        # One-hot row selection with the MAP axis on the VPU lane (minor)
-        # axis: [N, size_main] per env, one unrolled pass per 32-tile word
-        # (n_lw is 1 up to 32-wide maps, 2 up to 64).  Keeping each word's
-        # lines as a separate [M] vector — rather than a [M, n_lw] array —
-        # avoids both a 1-2-wide minor axis (which pads every op to 128
-        # lanes) and any minor-axis transpose in the packing.
+        # One-hot row selection with the MAP axis minor: [N, size_main] per
+        # env, one unrolled pass per 32-tile word (n_lw is 1 up to 32-wide
+        # maps, 2 up to 64).  Keeping each word's lines as a separate [M]
+        # vector — rather than a [M, n_lw] array — avoids a 1-2-wide minor
+        # axis and any minor-axis transpose in the packing.
         onehot_p = m_plus[:, None] == iota[None, :]              # [N, M]
         onehot_m = m_minus[:, None] == iota[None, :]
         bit = (c_idx & 31).astype(jnp.uint32)
@@ -379,11 +372,10 @@ def _crossing_axis(
     # min + argmin + one-hot payload sum.  Selection is identical (argmin
     # returns the first — smallest-k — occurrence of the min, exactly the
     # (t, k) lexicographic rule, and the winner's payload rides along), so
-    # results are bit-identical; but the three separate [N, R] reductions
-    # each forced the candidate arrays through HBM, which is the measured
-    # wall at large ray counts (ref-default 512-ray cast ~12x off its VPU
-    # bound, docs/RESULTS.md round 4) — a single reduce lets XLA fuse the
-    # whole candidate pipeline into one generate-and-reduce pass.
+    # results are bit-identical; but three separate [N, R] reductions can
+    # each force the candidate arrays through device memory, while a single
+    # reduce lets XLA fuse the whole candidate pipeline into one
+    # generate-and-reduce pass.
     ks_b = jnp.broadcast_to(
         jnp.arange(n, dtype=jnp.int32)[:, None], t_m.shape
     )
@@ -427,7 +419,7 @@ def _row_line_words(dense: jax.Array):
 
 def _col_line_words(dense: jax.Array):
     """Per-column occupancy words: list of ceil(H/32) vectors u32[W], word q
-    bit i%32 = tile (32q+i%32, j).  Sublane reductions over row slices."""
+    bit i%32 = tile (32q+i%32, j).  Reductions over row slices."""
     h, w = dense.shape
     words = []
     for q in range(0, h, 32):
@@ -448,16 +440,16 @@ def cast_rays_crossing(
     """Loop-free DDA: the hit is the min-distance occupied entered tile over
     ALL grid-line crossings, evaluated in parallel.
 
-    TPU-first reformulation of the sequential march (reference contract at
+    Parallel reformulation of the sequential march (reference contract at
     /root/reference/src/single_room.jl:223-227): a ray crosses at most H
     i-lines and W j-lines before the border walls stop it; each crossing k
     enters exactly one tile at closed-form distance ``(frac + k) / |d|``, so
     the first occupied tile along the ray is simply the minimum crossing
     distance whose entered tile is occupied.  No sequential dependency
-    remains: where ``lax.scan`` streams 7 [B, R] carries through HBM every
-    DDA iteration (the measured wall at high resolutions — docs/RESULTS.md),
-    this is one flat [B, R, H+W] elementwise program + a min-reduction that
-    XLA fuses straight into the camera renderer.
+    remains: where ``lax.scan`` streams 7 [B, R] carries through device
+    memory every DDA iteration, this is one flat [B, R, H+W] elementwise
+    program + a min-reduction that XLA fuses straight into the camera
+    renderer.
 
     Numerics: distances are the closed form ``(frac + k) / |d|`` (an
     uncontractible add-then-divide; see _crossing_axis) instead of the scan's
@@ -500,7 +492,7 @@ def cast_rays(
     ray_dirs: jax.Array | None = None,
 ) -> RayHits:
     """Full cast for one env (ref ``cast_rays!``, single_room.jl:195-231):
-    LUT fan lookup (one-hot matmul; ops/lut.py) + packed DDA march.
+    LUT fan lookup (ops/lut.py) + packed DDA march.
     ``ray_dirs`` overrides the LUT fan (continuous headings compute the fan
     live)."""
     from . import lut as lut_ops
@@ -510,11 +502,7 @@ def cast_rays(
         if ray_dirs is not None
         else lut_ops.take_rows(jnp.asarray(cfg.ray_fan_lut), dir_au)
     )  # [R, 2]
-    if cfg.resolved_raycast_backend in (
-        "crossing", "crossing_kernel", "crossing_kernel_fused"
-    ):
-        # the kernel variants are BATCH-path backends (Game.cast_batch);
-        # single-env casts (viewers, top views) share the XLA crossing.
+    if cfg.resolved_raycast_backend == "crossing":
         hit_tu, hit_dim, dist = cast_rays_crossing(
             obstacle_words, (cfg.H, cfg.W), pos_wu, dirs
         )

@@ -10,7 +10,7 @@ overkill — the first occupied tile along any interior ray is either
 * the nearest of the K unit boxes, via standard slab (ray-vs-AABB) tests,
 
 whichever is closer.  O(K) per ray instead of O(H+W) masked DDA iterations —
-~an order of magnitude fewer VPU ops for the reference's 8x16 room at small K.
+~an order of magnitude fewer ops for the reference's 8x16 room at small K.
 
 Numerics: distances here are computed in one rounding step, while the DDA
 accumulates ``side += delta`` — results agree to ~1e-6 relative but are NOT
@@ -40,7 +40,7 @@ def cast_rays_boxes(
     (-1, -1) for collected goals) can never win against the border and act
     as disabled slots.  Matches DDA hit tiles/faces; distances agree to
     float32 rounding.  O(K) per ray — for the K<=8 of the room-shaped
-    families this is an order of magnitude fewer VPU ops than the masked
+    families this is an order of magnitude fewer ops than the masked
     O(H+W) DDA march."""
     from . import lut as lut_ops
 

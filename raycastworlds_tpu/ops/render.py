@@ -5,7 +5,7 @@ per ray, fisheye-correct the DDA distance by the dot with the player direction,
 compute a wall-column height, pick a two-shade color by (wall-or-goal x
 hit-face axis), and write a mirrored ceiling/wall/floor column.
 
-TPU-native re-conception: no per-column loop or branches — the whole
+Batched re-conception: no per-column loop or branches — the whole
 [H_pu, R] image is a single vectorized compare-and-select over a row-index
 iota against per-ray padding, which XLA fuses with the DDA epilogue into one
 kernel.  The reference's ``for i; if/else`` per column disappears entirely.
@@ -124,7 +124,7 @@ def render_camera_u32(
     )  # u32[R]
     # Mirror (:431) by flipping the cheap per-ray vectors BEFORE the [H, R]
     # broadcast — flipping the full image afterwards is a whole-image
-    # relayout pass (~20% of step time on v5e for nothing).
+    # relayout pass for nothing.
     pad = jnp.flip(pad, axis=0)
     slab = jnp.flip(slab, axis=0)
     row = jnp.arange(hpu, dtype=jnp.int32)[:, None]  # [H_pu, 1]
@@ -181,8 +181,7 @@ def _texture_uv(cfg, hits: RayHits, pos_wu, height_line, row):
     # index is vi = floor(t * (2*row - hpu + h) / (2*h)) — doubled
     # coordinates keep the half-pixel top offset exact, and the only
     # float->int transition left is the same floor the slab renderer already
-    # takes.  Integer ops are also cheaper than the [H, R] f32 divide on the
-    # VPU.
+    # takes.  Integer ops are also cheaper than an [H, R] f32 divide.
     # Bounds t * (2*row + h) below int32 overflow for any texture_cells:
     # 2^20 for small t (the historical value — bit-identical images), shrunk
     # so that t * 2 * cap stays under 2^31 when t is large.
@@ -224,7 +223,7 @@ def _texture_factor_index(cfg, ui, vi):
 
 def _texture_wall(cfg, wall_px, hits: RayHits, pos_wu, height_line, row):
     """Procedural per-pixel wall texturing, fully arithmetic (no texture
-    memory, no gathers — the TPU-native answer to texture mapping).  The
+    memory, no gathers).  The
     pattern modulates the flat two-shade slab color, so texel brightness
     composes with the reference's fake-lighting face shading.  See
     :func:`_texture_uv` / :func:`_texture_factor_index` for the texel
@@ -255,14 +254,10 @@ def _texture_wall(cfg, wall_px, hits: RayHits, pos_wu, height_line, row):
 def u32_to_rgb(img: jax.Array) -> jax.Array:
     """Unpack 0x00RRGGBB -> uint8[..., 3] on device.
 
-    Layout note (measured, docs/RESULTS.md round 3): ANY channels-minor u8
-    observation is layout-bound on TPU — at 8192 envs x 256 rays x 128 px,
-    camera_u32 runs 3.17M steps/s (its HBM roofline) while this 3-wide-minor
-    u8 form runs 1.83M; a byte-swap + ``bitcast_convert_type`` variant
-    producing [..., 4] measured *worse* (1.60M).  Max-throughput RGB
-    consumers should take camera_u32 and unpack on the consumer side where
-    the conversion fuses into their first op (parallel/ppo.preprocess_obs
-    does exactly this)."""
+    A channels-minor u8 array of width 3 is an awkward memory layout;
+    max-throughput RGB consumers can take camera_u32 and unpack on the
+    consumer side, where the conversion fuses into their first op
+    (parallel/ppo.preprocess_obs does exactly this)."""
     return jnp.stack(
         [
             (img >> 16) & 0xFF,
@@ -284,10 +279,10 @@ def u32_to_gray(img: jax.Array) -> jax.Array:
 def u32_to_gray_u8(img: jax.Array) -> jax.Array:
     """Rec.601 luma quantized to uint8 [0, 255] — the 1-byte grayscale
     observation (``camera_gray_u8``).  Planar [H_pu, R] layout: the wide ray
-    axis stays minor, unlike the channels-minor u8 forms measured 2x worse
-    (docs/RESULTS.md round 3).  The u32 intermediate fuses into this
-    conversion under jit (verified for the rgb unpack by compiled memory
-    analysis), so only the 1-byte image touches HBM.
+    axis stays minor, unlike the channels-minor u8 forms.  The u32
+    intermediate fuses into this conversion under jit (verified for the rgb
+    unpack by compiled memory analysis), so only the 1-byte image is
+    written to device memory.
 
     Rounds to nearest (+0.5 then truncate) rather than truncating: pure
     truncation maps white to 254 whenever FMA/fusion lands the f32 weight
@@ -373,8 +368,7 @@ def render_camera_pal8(
     == render_camera_u32(...)`` bit-exactly (same :func:`_column_pads`
     geometry, same select predicates, same :func:`_texture_factor_index`
     texel rule; only constants-vs-indices differ).  At 1/4 the observation
-    bytes of ``camera_u32`` this is the max-throughput camera form on TPU
-    (docs/RESULTS.md).
+    bytes of ``camera_u32`` this is the max-throughput camera form.
     """
     hpu = cfg.height_camera_view_pu
     pad, height_line = _column_pads(cfg, player_dir_wu, hits)

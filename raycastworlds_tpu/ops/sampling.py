@@ -3,7 +3,7 @@
 The reference rejection-samples empty tiles with a host loop of up to
 ``1024*H*W`` tries (/root/reference/src/utils.jl:23-58).  Rejection sampling a
 uniform proposal until empty is *exactly* the uniform distribution over empty
-tiles, so the TPU-native equivalent is a single masked categorical draw — no
+tiles, so the batched equivalent is a single masked categorical draw — no
 loop, no possibility of exhaustion, identical distribution.
 """
 
@@ -76,18 +76,22 @@ _PREFIX_BLOCK = 256
 
 
 def _prefix_count(empty: jax.Array) -> jax.Array:
-    """Inclusive prefix sum of a 0/1 float32 vector, as MXU matvecs.
+    """Inclusive prefix sum of a 0/1 float32 vector, as blocked matvecs.
 
-    ``jnp.cumsum`` lowers to an O(n^2) reduce-window on TPU (measured ~20%
-    of a whole env step), and a single [n, n] ones-triangle matvec — the
-    round-1 fix — embeds an O(n^2)-memory constant that dies quietly beyond
-    small maps (a 64x64 map would mean a 67 MB triangle inside every reset).
-    This is the O(n)-memory version: block the vector into [nb, bs], do the
+    A single [n, n] ones-triangle matvec embeds an O(n^2)-memory constant
+    that dies quietly beyond small maps (a 64x64 map would mean a 67 MB
+    triangle inside every reset).  This is the O(n)-memory version: block
+    the vector into [nb, bs], do the
     within-block inclusive prefix against a [bs, bs] triangle, then add the
     exclusive prefix of the block totals (a second small triangular matvec).
     All intermediate values are integer-valued counts <= n, exact in float32
     (n < 2^24), so the result — and every draw derived from it — is
     bit-identical to both the single-triangle and cumsum formulations.
+
+    The products stay exact where a float32 matmul runs in TF32 (as GPU
+    tensor cores may by default): every operand is 0, 1 or a block total
+    <= bs = 256, all exact in TF32's 11-bit significand, and the sums
+    accumulate in float32.  Replacing this with ``jnp.cumsum`` is ROADMAP D2.
     """
     import numpy as np
 

@@ -5,7 +5,7 @@ Reference: ``draw_tile_map!`` + ``update_top_view!``
 rectangles with 1-px grid lines, 512 ray segments from the player to each hit
 point, and the player circle, drawn with SimpleDraw shapes.
 
-TPU-native: the tile blit and grid lines are pure broadcasting; the ray
+Batched: the tile blit and grid lines are pure broadcasting; the ray
 segments are Bresenham marches vectorized across all rays under one
 ``lax.scan`` whose points scatter into the image; the player circle is a
 distance-band mask.  Pixel-level algorithms (Bresenham, circle) are specified

@@ -2,7 +2,7 @@
 
 Same philosophy as oracle/single_room.py: independent, deliberately naive
 reimplementations (mutable state, Python branches, per-ray loops, per-pixel
-render loops) of the semantics the TPU build computes branch-free and
+render loops) of the semantics the JAX build computes branch-free and
 batched.  Agreement on fixed-seed trajectories is the parity evidence for
 everything the reference never had: multi-goal collection (models/multi_goal.py),
 moving obstacle blocks (models/dynamic_room.py), and procedural wall textures

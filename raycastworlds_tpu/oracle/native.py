@@ -155,9 +155,7 @@ class NativeOracleSingleRoom(OracleSingleRoom):
         hit_j = np.zeros(r, np.int32)
         hit_dim = np.zeros(r, np.int32)
         dist = np.zeros(r, np.float32)
-        if self.cfg.resolved_raycast_backend in (
-            "crossing", "crossing_kernel", "crossing_kernel_fused"
-        ):
+        if self.cfg.resolved_raycast_backend == "crossing":
             self._lib.rcw_cast_crossing(
                 _ptr(obstacle, ctypes.c_uint8), cfg.H, cfg.W,
                 _ptr(fan, ctypes.c_float), r,

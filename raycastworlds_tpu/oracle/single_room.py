@@ -4,15 +4,15 @@ An independent, deliberately *naive* reimplementation of the reference
 semantics (/root/reference/src/single_room.jl, utils.jl,
 collision_detection.jl, plus the Lodev DDA contract of RayCaster.jl at
 single_room.jl:223-227): mutable state, Python branches, per-ray while-loops,
-per-column render loops — the exact opposite of the TPU build, which is the
+per-column render loops — the exact opposite of the JAX build, which is the
 point: agreement between the two is strong evidence both are right.
 
-Only the PRNG is shared infrastructure: reset draws use ``jax.random`` (CPU)
+Only the PRNG is shared infrastructure: reset draws use ``jax.random``
 with the same key-split order as ``SingleRoom.reset_single``, because JAX's
 threefry is deterministic across backends — that is what makes the parity
 *bit-exact* rather than merely statistical.  All game logic here is NumPy.
 
-Indexing is 0-based like the TPU build (the Julia reference is 1-based; the
+Indexing is 0-based like the JAX build (the Julia reference is 1-based; the
 translation is ``wu_to_tu(x) = floor(x)`` and tile centers at ``i + 0.5``).
 """
 
@@ -53,7 +53,7 @@ class OracleSingleRoom:
         self.directions_wu = np.array(cfg.directions_wu, np.float32)
         self.rng_key = None
 
-    # -- reset (PRNG stream shared with the TPU build) -------------------
+    # -- reset (PRNG stream shared with the JAX build) -------------------
 
     def reset(self, key) -> None:
         """Same draw order as SingleRoom.reset_single: split(key, 4) ->
@@ -176,9 +176,7 @@ class OracleSingleRoom:
         crossing-formulation mirror when the config selects that backend.
         Returns (i_hit, j_hit, hit_dim in {0,1}, euclidean distance along
         the ray to the hit face)."""
-        if self.cfg.resolved_raycast_backend in (
-            "crossing", "crossing_kernel", "crossing_kernel_fused"
-        ):
+        if self.cfg.resolved_raycast_backend == "crossing":
             return self.cast_one_crossing(obstacle_map, px, py, dx, dy)
         return self.cast_one_scan(obstacle_map, px, py, dx, dy)
 

@@ -2,7 +2,7 @@
 
 The reference has no parallelism of any kind (single mutable struct stepped in
 place; see SURVEY.md section 2 "Parallelism & distributed communication").
-This module is the greenfield TPU-native layer: a named mesh over
+This module is the greenfield parallel layer: a named mesh over
 (data, model) axes, envs sharded along ``dp``, learner tensors optionally
 sharded along ``mp``; XLA inserts the collectives (psum for gradient
 reduction, all-gathers at the tensor-parallel boundaries) from the sharding
@@ -10,7 +10,9 @@ annotations — the standard scaling-book recipe, no hand-written comms.
 
 Multi-host: call :func:`initialize_distributed` first on each host, then
 ``make_mesh`` builds the mesh over the global device set, and the same jitted
-program runs SPMD across hosts with ICI/DCN collectives.
+program runs SPMD across hosts.  Every device of one host reaches every
+other at the same rate (NVLink, all to all), so the mesh is a plain
+(dp, mp) grid shaped by the algorithm alone.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """PPO learner co-located with the env batch — BASELINE config 5.
 
 The reference exposes envs to an external Julia RL stack and stops there
-(/root/reference/src/single_room.jl:570-584).  The TPU-native framework ships
+(/root/reference/src/single_room.jl:570-584).  This framework ships
 the other half: an actor-critic learner whose train step (rollout + GAE +
 clipped-PPO update) is ONE jitted SPMD program over the device mesh — envs and
 observations sharded along ``dp`` and never leaving the devices, gradients
@@ -15,7 +15,6 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 import numpy as np
 import optax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -24,6 +23,7 @@ from ..config import EnvConfig
 from ..env import Env
 from ..state import EnvState
 from . import mesh as mesh_lib
+from .nets import ActorCritic
 from .rollout import rollout_policy
 
 
@@ -50,12 +50,11 @@ def preprocess_obs(cfg: EnvConfig, obs: jax.Array) -> jax.Array:
         # SELECT: the N channel bytes live in ceil(N/4) u32 compile-time
         # constants; each pixel picks its word with a short select chain
         # and extracts its byte with a variable shift — ~6 integer ops per
-        # channel, fully fused elementwise.  Both alternatives measured
-        # far worse at the bench_ppo shape (docs/RESULTS.md round 5): the
-        # one-hot contraction materializes a [.., N] f32 intermediate
-        # (0.86M steps/s) and a broadcast where-chain re-materializes the
-        # [.., 3] output per entry (0.22M).  Extended textured palettes
-        # (> 64 entries) keep the one-hot matmul.
+        # channel, fully fused elementwise.  The alternatives cost more
+        # memory traffic: a one-hot contraction materializes a [.., N] f32
+        # intermediate and a broadcast where-chain re-materializes the
+        # [.., 3] output per entry.  Extended textured palettes (> 64
+        # entries) decode with a row gather, exact like the select.
         pal_u32 = cfg.palette_np  # host np uint32 [N]
         n = int(pal_u32.shape[0])
         if n <= 64:
@@ -80,10 +79,7 @@ def preprocess_obs(cfg: EnvConfig, obs: jax.Array) -> jax.Array:
                 / 255.0
             )
         pal = jnp.asarray(cfg.palette_rgb_f32)  # [N, 3]
-        oh = jax.nn.one_hot(
-            obs.astype(jnp.int32), pal.shape[0], dtype=jnp.float32
-        )
-        return oh @ pal
+        return jnp.take(pal, obs.astype(jnp.int32), axis=0, mode="clip")
     if cfg.obs_type == "camera_gray_u8":
         return obs[..., None].astype(jnp.float32) / 255.0
     if cfg.obs_type == "depth":
@@ -99,72 +95,8 @@ def preprocess_obs(cfg: EnvConfig, obs: jax.Array) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# Actor-critic network
+# Tensor-parallel placement of the actor-critic (parallel/nets.py)
 # ---------------------------------------------------------------------------
-
-
-class ActorCritic(nn.Module):
-    """Small conv (images) / MLP (vectors) trunk with policy+value heads.
-
-    Convolutions and the dense trunk are where the MXU FLOPs are; compute is
-    kept in float32 by default (bfloat16 via ``dtype`` — params stay f32,
-    the standard mixed-precision recipe; logits/values are returned in f32
-    either way).  The trunk Dense is the tensor-parallel candidate (hidden
-    axis sharded over ``mp``).
-
-    ``trunk`` picks the image feature extractor:
-    * ``"conv"`` — two overlapping 4x4/stride-2 convolutions.  The first
-      conv's contraction dim is 4*4*C_in = 16 for gray frames, which the
-      128-wide MXU pads 8x — most of its FLOPs are wasted lanes.
-    * ``"patch"`` — one non-overlapping 8x8 patch embedding (contraction
-      8*8*C_in = 64, ~3x fewer FLOPs at this resolution and far better MXU
-      utilization) + the dense trunk.  Measured ~2x train-step throughput
-      at the bench_ppo config with an equivalent learning curve
-      (docs/RESULTS.md round 3).
-    * ``"mlp"`` — no spatial layer at all: flatten the pixels and go
-      straight into the dense trunk.  The round-5 trace showed the patch
-      path's [B, 8*8*64] activation (relu fwd+bwd, conv-kernel backward
-      reduce) costing ~3x the matmuls themselves; the flat trunk has the
-      same dominant matmul shape (pixels -> hidden) but its intermediate
-      is just [B, hidden] — the max-throughput trunk (docs/RESULTS.md
-      round 5), with a Maze/SingleRoom learning curve matching patch at
-      these resolutions.
-    """
-
-    num_actions: int = 4
-    hidden: int = 256
-    dtype: Any = jnp.float32
-    trunk: str = "conv"
-
-    @nn.compact
-    def __call__(self, x: jax.Array) -> Tuple[jax.Array, jax.Array]:
-        x = x.astype(self.dtype)
-        if x.ndim >= 4:  # [B, H, W, C] image
-            if self.trunk == "patch":
-                x = nn.Conv(
-                    64, (8, 8), strides=(8, 8), padding="VALID",
-                    dtype=self.dtype, name="patch",
-                )(x)
-                x = nn.relu(x)
-            elif self.trunk == "mlp":
-                pass  # flatten below; the trunk Dense IS the pixel layer
-            else:
-                x = nn.Conv(16, (4, 4), strides=(2, 2), dtype=self.dtype)(x)
-                x = nn.relu(x)
-                x = nn.Conv(32, (4, 4), strides=(2, 2), dtype=self.dtype)(x)
-                x = nn.relu(x)
-            x = x.reshape(x.shape[0], -1)
-        x = nn.Dense(self.hidden, dtype=self.dtype, name="trunk")(x)
-        x = nn.relu(x)
-        if self.trunk == "mlp":
-            # second hidden layer restores the depth the conv/patch stage
-            # provided; costs hidden^2 FLOPs (negligible next to the pixel
-            # layer) and keeps the capacity comparison fair.
-            x = nn.Dense(self.hidden, dtype=self.dtype, name="trunk2")(x)
-            x = nn.relu(x)
-        logits = nn.Dense(self.num_actions, dtype=self.dtype, name="policy")(x)
-        value = nn.Dense(1, dtype=self.dtype, name="value")(x)
-        return logits.astype(jnp.float32), value.astype(jnp.float32)[..., 0]
 
 
 def param_shardings(params, mesh: Mesh):
@@ -373,8 +305,8 @@ class PPOTrainer:
 
     # -- the jitted train step ------------------------------------------
     # Split into two pure phases so each can be jitted/timed in isolation
-    # (bench_ppo --phases, docs/RESULTS.md round-5 learner profile) while
-    # the production train step still compiles them as ONE program.
+    # (examples/profile_ppo.py) while the production train step still
+    # compiles them as ONE program.
 
     def _rollout_phase(self, ts: TrainState, k_roll: jax.Array):
         """Rollout + last-value bootstrap + GAE.  Returns

@@ -2,7 +2,7 @@
 
 The feedforward learner (parallel/ppo.py) sees one frame at a time; in Maze
 worlds the camera view rarely identifies the player's location, so the
-feedforward policy plateaus (docs/RESULTS.md).  This trainer carries a GRU
+feedforward policy plateaus (docs/FAMILIES.md).  This trainer carries a GRU
 hidden state through the rollout — reset at episode boundaries — and
 replays the recurrence during the update, the standard recurrent-PPO
 recipe:
@@ -32,7 +32,6 @@ from typing import Any, NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 import numpy as np
 import optax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -40,51 +39,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..env import Env
 from ..state import EnvState
 from . import mesh as mesh_lib
+from .nets import RecurrentActorCritic
 from .ppo import PPOConfig, compute_gae, preprocess_obs
-
-
-class RecurrentActorCritic(nn.Module):
-    """Conv/patch/MLP feature trunk -> GRU cell -> policy & value heads.
-
-    The GRU carry stays float32 across steps (stability); compute runs in
-    ``dtype`` like the feedforward net.
-    """
-
-    num_actions: int = 4
-    hidden: int = 256
-    dtype: Any = jnp.float32
-    trunk: str = "conv"
-
-    @nn.compact
-    def __call__(self, x: jax.Array, h: jax.Array):
-        x = x.astype(self.dtype)
-        if x.ndim >= 4:  # [B, H, W, C] image
-            if self.trunk == "patch":
-                x = nn.Conv(
-                    64, (8, 8), strides=(8, 8), padding="VALID",
-                    dtype=self.dtype, name="patch",
-                )(x)
-                x = nn.relu(x)
-            elif self.trunk == "mlp":
-                pass  # flatten below; the embed Dense IS the pixel layer
-            else:
-                x = nn.Conv(16, (4, 4), strides=(2, 2), dtype=self.dtype)(x)
-                x = nn.relu(x)
-                x = nn.Conv(32, (4, 4), strides=(2, 2), dtype=self.dtype)(x)
-                x = nn.relu(x)
-            x = x.reshape(x.shape[0], -1)
-        e = nn.Dense(self.hidden, dtype=self.dtype, name="embed")(x)
-        e = nn.relu(e)
-        new_h, out = nn.GRUCell(
-            features=self.hidden, dtype=self.dtype, name="gru"
-        )(h.astype(self.dtype), e)
-        logits = nn.Dense(self.num_actions, dtype=self.dtype, name="policy")(out)
-        value = nn.Dense(1, dtype=self.dtype, name="value")(out)
-        return (
-            logits.astype(jnp.float32),
-            value.astype(jnp.float32)[..., 0],
-            new_h.astype(jnp.float32),
-        )
 
 
 class RnnTrainState(NamedTuple):

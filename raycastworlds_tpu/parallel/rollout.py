@@ -2,7 +2,7 @@
 
 The reference's "rollout" is its test loop: host-side
 ``state -> rand action -> act! -> reward`` one env at a time
-(/root/reference/test/runtests.jl:26-40).  TPU-native: the whole T-step
+(/root/reference/test/runtests.jl:26-40).  Here the whole T-step
 rollout is one jitted ``lax.scan`` — actions sampled on device from folded
 PRNG keys (or a policy), observations stay device-resident, nothing touches
 the host inside the loop.  Under a sharded EnvState the same program runs

@@ -1,8 +1,8 @@
 """Environment state as an immutable pytree.
 
 The reference keeps a single mutable struct stepped in place
-(``SingleRoomWorld``, /root/reference/src/single_room.jl:21-40).  TPU-native
-re-conception: an immutable struct-of-arrays pytree with *no* ray buffers —
+(``SingleRoomWorld``, /root/reference/src/single_room.jl:21-40).  Here it is
+an immutable struct-of-arrays pytree with *no* ray buffers —
 ray results are recomputed functionally each step and fused into the render by
 XLA, never stored as state.  Add a leading batch axis with ``vmap``; shard the
 batch axis over a device mesh with ``NamedSharding``.
@@ -14,14 +14,15 @@ reproducible per-env and independent of batch size / sharding.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class EnvState:
     """Per-env state; all fields unbatched here, batched via vmap.
 
@@ -57,7 +58,9 @@ class EnvState:
     pending_reset: jax.Array
     # Static map dims (aux data, not a leaf) so the packed words can be
     # unpacked without an EnvConfig in hand.
-    hw: Tuple[int, int] = struct.field(pytree_node=False, default=None)
+    hw: Tuple[int, int] = dataclasses.field(
+        default=None, metadata=dict(static=True)
+    )
     # Optional per-family extensions (None for families that don't use them;
     # None is an empty pytree node so tree ops stay uniform within a game):
     #   goal_words  uint32[nw]  bit-packed multi-goal mask (MultiGoalRoom;
@@ -74,6 +77,10 @@ class EnvState:
     #   key_held    bool     key collected -> door tiles vanish
     key_tu: Any = None
     key_held: Any = None
+
+    def replace(self, **changes) -> "EnvState":
+        """Copy with the given fields replaced."""
+        return dataclasses.replace(self, **changes)
 
     @property
     def batch_shape(self):

@@ -1,7 +1,7 @@
 """Profiling / tracing / metrics helpers.
 
 The reference's observability is ``println`` in the play callback
-(SURVEY.md section 5).  TPU-native equivalents:
+(SURVEY.md section 5).  Equivalents here:
 
 * :func:`trace` — context manager around ``jax.profiler`` emitting a
   Perfetto/XProf trace directory;
@@ -25,7 +25,7 @@ import numpy as np
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/rcw_trace") -> Iterator[None]:
+def trace(log_dir: str) -> Iterator[None]:
     """Capture a device trace viewable in XProf/Perfetto."""
     jax.profiler.start_trace(log_dir)
     try:

@@ -1,8 +1,8 @@
 """Episode recording and GIF export.
 
 No reference equivalent — the reference's only visualization is the live
-minifb window (/root/reference/src/single_room.jl:488-568).  TPU hosts are
-headless, so the equivalent artifact is a file: record frames during a
+minifb window (/root/reference/src/single_room.jl:488-568).  Accelerator
+hosts are usually headless, so the equivalent artifact is a file: record frames during a
 rollout (device-side render, one host transfer per frame batch) and write an
 animated GIF.
 

@@ -2,7 +2,7 @@
 
 The reference's `play!` opens a minifb window with a keyboard callback
 (/root/reference/src/single_room.jl:488-568) — its only native dependency.
-TPU hosts are headless, so the equivalent here is:
+Accelerator hosts are usually headless, so the equivalent here is:
 
 * the native C++ viewer (native/viewer.cpp, loaded via ctypes): PPM writer +
   ANSI half-block compositor + frame differ, with pure-NumPy fallbacks when
@@ -99,7 +99,7 @@ def _native_lib() -> Optional[ctypes.CDLL]:
 
 
 class Window:
-    """A real X11 window for live frames — the TPU-native equivalent of the
+    """A real X11 window for live frames — the equivalent of the
     reference's minifb window (/root/reference/src/single_room.jl:503-565).
 
     ``Window.open()`` returns None on headless hosts (no $DISPLAY, no libX11,

@@ -1,7 +1,7 @@
-"""Browser-based interactive play for headless TPU hosts.
+"""Browser-based interactive play for headless accelerator hosts.
 
 The reference's ``play!`` needs a local display (minifb window,
-/root/reference/src/single_room.jl:488-568); remote TPU hosts usually have
+/root/reference/src/single_room.jl:488-568); remote GPU hosts usually have
 none.  This module serves the play loop over HTTP instead: a
 dependency-free stdlib server streams PNG frames to a browser page whose
 key events drive the env with the reference key map (w/s/a/d -> actions

@@ -4,7 +4,7 @@ Launched by tests/test_distributed.py as N separate OS processes, each with
 its own 2-device virtual CPU backend, joined through
 ``jax.distributed.initialize`` (localhost coordinator, Gloo CPU collectives) —
 the standard way to exercise the multi-host code path
-(parallel/mesh.py:initialize_distributed) without TPU slices.  The reference
+(parallel/mesh.py:initialize_distributed) without a GPU cluster.  The reference
 has no distributed layer at all (SURVEY.md §2); this validates the greenfield
 one end-to-end: global (dp, mp) mesh spanning processes, env batch sharded
 over dp, a rollout stepping SPMD, and one tensor-parallel PPO update whose

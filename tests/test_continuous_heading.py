@@ -90,41 +90,9 @@ def test_continuous_parity_vs_scalar_oracle(seed):
     (oracle/families.OracleContinuous): bit-exact positions, float headings,
     rewards, dones and camera frames — lifting the continuous mode to the
     same parity tier as the discrete families."""
-    from raycastworlds_tpu.oracle.families import OracleContinuous
+    from raycastworlds_tpu.oracle import parity
 
-    cfg = rcw.EnvConfig(
-        num_rays=48, height_camera_view_pu=32, continuous_heading=True,
-        turn_increment_au=0.7,
-    )
-    game = rcw.SingleRoom(cfg)
-    reset = jax.jit(game.reset_single)
-    step = jax.jit(game.step_single)
-    observe = jax.jit(game.observe_single)
-    oracle = OracleContinuous(cfg)
-
-    key = jax.random.PRNGKey(seed)
-    state = reset(key)
-    oracle.reset(key)
-
-    rng = np.random.RandomState(seed)
-    for t in range(160):
-        assert np.asarray(state.pos_wu).tolist() == oracle.pos_wu.tolist(), t
-        assert np.float32(state.dir_au) == oracle.dir_au, t
-        assert float(state.reward) == float(oracle.reward), t
-        assert bool(state.done) == oracle.done, t
-        if t % 16 == 0:
-            np.testing.assert_array_equal(
-                np.asarray(observe(state)), oracle.camera_view(),
-                err_msg=f"step {t}",
-            )
-        if bool(state.done):
-            k = state.rng_key
-            state = reset(k)
-            oracle.reset(k)
-        else:
-            a = int(rng.choice(4, p=[0.55, 0.05, 0.2, 0.2]))
-            state = step(state, jnp.int32(a))
-            oracle.step(a)
+    parity.continuous(seed).assert_exact()
 
 
 def test_depth_obs_continuous():

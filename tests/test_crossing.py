@@ -10,8 +10,6 @@ tiles and hit dimensions everywhere (distances may differ by ~1 ulp:
 closed-form ``side0 + k*delta`` vs accumulated sides).
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -204,156 +202,25 @@ def test_crossing_axis_aligned_and_degenerate_rays():
         assert (ht[:, 1] >= 0).all() and (ht[:, 1] < cfg.W).all()
 
 
-def test_crossing_kernel_matches_crossing():
-    """The Pallas crossing kernel (batch path, interpret mode on CPU)
-    agrees exactly with the XLA crossing backend — hits, dims, distances,
-    and the full camera observation — on random states of a bordered room
-    and a per-env generated maze."""
-    import dataclasses
-
-    cases = [
-        rcw.EnvConfig(num_rays=32, height_camera_view_pu=24),
-        rcw.MazeConfig(
-            num_rays=32, height_camera_view_pu=24,
-            height_tile_map_tu=9, width_tile_map_tu=9,
-        ),
-    ]
-    for cfg in cases:
-        gx = (rcw.Maze if isinstance(cfg, rcw.MazeConfig) else rcw.SingleRoom)(
-            dataclasses.replace(cfg, raycast_backend="crossing")
+def test_auto_backend_shape_dispatch():
+    """'auto' is XLA crossing for every shape, dtype and heading mode — the
+    choice depends on the config, never on the platform; explicit choices
+    are never overridden; removed kernel backends are rejected."""
+    for kw in (
+        dict(num_rays=512),
+        dict(num_rays=256),
+        dict(num_rays=64),
+        dict(num_rays=512, height_tile_map_tu=64, width_tile_map_tu=64),
+        dict(num_rays=512, dtype="float64"),
+        dict(num_rays=512, continuous_heading=True),
+    ):
+        assert rcw.EnvConfig(**kw).resolved_raycast_backend == "crossing", kw
+    for explicit in ("scan", "scan_flat", "crossing", "analytic"):
+        assert (
+            rcw.EnvConfig(raycast_backend=explicit).resolved_raycast_backend
+            == explicit
         )
-        gk = type(gx)(dataclasses.replace(cfg, raycast_backend="crossing_kernel"))
-        keys = jax.random.split(jax.random.PRNGKey(11), 16)
-        state = jax.jit(jax.vmap(gx.reset_single))(keys)
-        hx = jax.jit(gx.cast_batch)(state)
-        hk = jax.jit(gk.cast_batch)(state)
-        np.testing.assert_array_equal(np.asarray(hx.hit_tu), np.asarray(hk.hit_tu))
-        np.testing.assert_array_equal(np.asarray(hx.hit_dim), np.asarray(hk.hit_dim))
-        np.testing.assert_array_equal(np.asarray(hx.dist_wu), np.asarray(hk.dist_wu))
-        np.testing.assert_array_equal(
-            np.asarray(jax.jit(gx.observe_batch)(state)),
-            np.asarray(jax.jit(gk.observe_batch)(state)),
-        )
-
-
-def test_crossing_kernel_fused_pal8_matches_xla_render():
-    """crossing_kernel_fused: the in-kernel pal8 compositing reproduces the
-    XLA pal8 render exactly (single-goal families)."""
-    import dataclasses
-
-    for cfg in [
-        rcw.EnvConfig(
-            num_rays=32, height_camera_view_pu=24, obs_type="camera_pal8"
-        ),
-        rcw.MazeConfig(
-            num_rays=32, height_camera_view_pu=24, obs_type="camera_pal8",
-            height_tile_map_tu=9, width_tile_map_tu=9,
-        ),
-    ]:
-        cls = rcw.Maze if isinstance(cfg, rcw.MazeConfig) else rcw.SingleRoom
-        gx = cls(dataclasses.replace(cfg, raycast_backend="crossing"))
-        gk = cls(
-            dataclasses.replace(cfg, raycast_backend="crossing_kernel_fused")
-        )
-        state = jax.jit(jax.vmap(gx.reset_single))(
-            jax.random.split(jax.random.PRNGKey(2), 16)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(jax.jit(gx.observe_batch)(state)),
-            np.asarray(jax.jit(gk.observe_batch)(state)),
-        )
-
-
-def test_crossing_kernel_fuzz_random_maps():
-    """Kernel vs XLA crossing on RANDOM obstacle maps and random interior
-    origins/directions — exact agreement on hits, dims and distances."""
-    from raycastworlds_tpu.ops import raycast, raycast_crossing_kernel as rck
-    from raycastworlds_tpu.ops.bitmap import pack_bits_np
-
-    rng = np.random.RandomState(0)
-    for h, w in [(8, 16), (13, 9), (24, 40)]:
-        b, r = 8, 64
-        maps = []
-        for _ in range(b):
-            m = rng.rand(h, w) < 0.25
-            m[0, :] = m[-1, :] = True
-            m[:, 0] = m[:, -1] = True
-            maps.append(pack_bits_np(m))
-        words = jnp.asarray(np.stack(maps))
-        pos = jnp.asarray(
-            rng.uniform([1.1, 1.1], [h - 1.1, w - 1.1], size=(b, 2)),
-            jnp.float32,
-        )
-        ang = rng.uniform(0, 2 * np.pi, size=(b, r))
-        dirs = jnp.asarray(
-            np.stack([np.cos(ang), np.sin(ang)], axis=-1), jnp.float32
-        )
-        # XLA crossing per env
-        def one(wds, p, d):
-            return raycast.cast_rays_crossing(wds, (h, w), p, d)
-        xt, xd, xs = jax.jit(jax.vmap(one))(words, pos, dirs)
-        kt, kd, ks = rck.cast_rays_crossing_kernel(
-            words, (h, w), pos, dirs, interpret=True
-        )
-        np.testing.assert_array_equal(np.asarray(xt), np.asarray(kt))
-        np.testing.assert_array_equal(np.asarray(xd), np.asarray(kd))
-        np.testing.assert_array_equal(np.asarray(xs), np.asarray(ks))
-
-
-def test_crossing_kernel_odd_batch_falls_back():
-    """Batch sizes the kernel can't block fall back to the XLA crossing."""
-    cfg = rcw.EnvConfig(
-        num_rays=16, height_camera_view_pu=16,
-        raycast_backend="crossing_kernel",
-    )
-    env = rcw.Env(rcw.SingleRoom(cfg), num_envs=3)  # 3 % 8 != 0
-    state, obs = env.reset(jax.random.PRNGKey(0))
-    res = env.step(state, jnp.zeros(3, jnp.int32))
-    assert res.obs.shape == (3, 16, 16)
-
-
-def test_auto_backend_shape_dispatch(monkeypatch):
-    """'auto' resolves to the Pallas crossing kernel exactly on the shapes
-    where it measured faster on hardware (>=256 rays, <=96 candidates, f32,
-    discrete headings, TPU); everything else stays on XLA crossing."""
-    import raycastworlds_tpu.config as config_mod
-
-    # On the CPU test backend, auto is always XLA crossing.
-    assert rcw.EnvConfig(num_rays=512).resolved_raycast_backend == "crossing"
-
-    monkeypatch.setattr(config_mod, "_default_backend_is_tpu", lambda: True)
-    assert (
-        rcw.EnvConfig(num_rays=512).resolved_raycast_backend
-        == "crossing_kernel"
-    )
-    assert (
-        rcw.EnvConfig(num_rays=256).resolved_raycast_backend
-        == "crossing_kernel"
-    )
-    # small fan: XLA fuses cast+render and wins
-    assert rcw.EnvConfig(num_rays=64).resolved_raycast_backend == "crossing"
-    # candidate-heavy map: stays on XLA crossing
-    assert (
-        rcw.EnvConfig(
-            num_rays=512, height_tile_map_tu=64, width_tile_map_tu=64
-        ).resolved_raycast_backend
-        == "crossing"
-    )
-    # f64 and continuous headings: kernel bakes f32 / LUT fans
-    assert (
-        rcw.EnvConfig(num_rays=512, dtype="float64").resolved_raycast_backend
-        == "crossing"
-    )
-    assert (
-        rcw.EnvConfig(
-            num_rays=512, continuous_heading=True
-        ).resolved_raycast_backend
-        == "crossing"
-    )
-    # explicit choices are never overridden
-    assert (
-        rcw.EnvConfig(
-            num_rays=512, raycast_backend="scan"
-        ).resolved_raycast_backend
-        == "scan"
-    )
+    for removed in ("crossing_kernel", "crossing_kernel_fused", "pallas",
+                    "fused"):
+        with pytest.raises(ValueError, match="raycast_backend"):
+            rcw.EnvConfig(raycast_backend=removed)

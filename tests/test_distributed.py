@@ -4,7 +4,7 @@ Launches the SAME program (tests/distributed_worker.py) twice:
   * once as a single process with 4 virtual CPU devices;
   * once as TWO OS processes with 2 virtual CPU devices each, joined via
     ``jax.distributed.initialize`` over a localhost coordinator with Gloo
-    CPU collectives — a faithful stand-in for a multi-host TPU slice.
+    CPU collectives — a faithful stand-in for a multi-host GPU cluster.
 
 Asserts the assembled dp-sharded env states are BIT-IDENTICAL between the
 two topologies (env stepping has no cross-env collectives, so distribution

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 
 import raycastworlds_tpu as rcw
-from raycastworlds_tpu.oracle.families import OracleLockedRoom
+from raycastworlds_tpu.oracle import parity
 from raycastworlds_tpu.ops import bitmap
 
 
@@ -120,40 +120,7 @@ def test_key_collection_rule():
 def test_locked_room_parity(seed):
     """Fixed-seed trajectory + camera parity vs the scalar oracle, across
     key collection and door opening."""
-    cfg = _cfg(num_rays=48, height_camera_view_pu=32)
-    game = rcw.LockedRoom(cfg)
-    reset = jax.jit(game.reset_single)
-    step = jax.jit(game.step_single)
-    observe = jax.jit(game.observe_single)
-    oracle = OracleLockedRoom(cfg)
-
-    key = jax.random.PRNGKey(seed)
-    state = reset(key)
-    oracle.reset(key)
-
-    rng = np.random.RandomState(seed)
-    saw_collect = False
-    for t in range(260):
-        assert np.asarray(state.pos_wu).tolist() == oracle.pos_wu.tolist(), t
-        assert int(state.dir_au) == oracle.dir_au, t
-        assert float(state.reward) == float(oracle.reward), t
-        assert bool(state.done) == oracle.done, t
-        assert bool(state.key_held) == oracle.key_held, t
-        assert (int(state.key_tu[0]), int(state.key_tu[1])) == oracle.key_tu, t
-        saw_collect = saw_collect or oracle.key_held
-        if t % 20 == 0:
-            np.testing.assert_array_equal(
-                np.asarray(observe(state)), oracle.camera_view(),
-                err_msg=f"step {t}",
-            )
-        if bool(state.done):
-            k = state.rng_key
-            state = reset(k)
-            oracle.reset(k)
-        else:
-            a = int(rng.choice(4, p=[0.6, 0.05, 0.175, 0.175]))
-            state = step(state, jnp.int32(a))
-            oracle.step(a)
+    parity.locked_room(seed).assert_exact()
 
 
 def test_locked_room_pal8_and_env_rollout():

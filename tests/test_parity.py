@@ -1,22 +1,23 @@
-"""Fixed-seed trajectory parity: jitted TPU-native env vs NumPy scalar oracle.
+"""Fixed-seed trajectory parity: jitted batched env vs NumPy scalar oracle.
 
 This is BASELINE config 1 ("CPU ref parity"): same seed, same action
 sequence, bit-exact positions / headings / rewards / dones, and identical
 camera-view images, for hundreds of steps including wall hits, goal hits and
 resets.  The two implementations share nothing but the PRNG stream and the
-direction LUT (see oracle/single_room.py docstring).
+direction LUT (see oracle/single_room.py docstring).  The drivers live in
+oracle/parity.py, shared with the on-device check in chip_smoke.py.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import raycastworlds_tpu as rcw
+from raycastworlds_tpu.oracle import parity
 from raycastworlds_tpu.oracle.single_room import OracleSingleRoom
 
 
-CFG = rcw.EnvConfig(num_rays=64, height_camera_view_pu=64)
+CFG = parity.SINGLE_ROOM_CFG
 
 
 def _jit_fns(game):
@@ -29,57 +30,12 @@ def _jit_fns(game):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_trajectory_parity(seed):
-    game = rcw.SingleRoom(CFG)
-    reset, step, observe, cast = _jit_fns(game)
-    oracle = OracleSingleRoom(CFG)
-
-    key = jax.random.PRNGKey(seed)
-    state = reset(key)
-    oracle.reset(key)
-
-    rng = np.random.RandomState(seed)
-    n_steps = 250
-    for t in range(n_steps):
-        # compare full state
-        assert np.asarray(state.pos_wu).tolist() == oracle.pos_wu.tolist(), t
-        assert int(state.dir_au) == oracle.dir_au, t
-        assert np.asarray(state.goal_tu).tolist() == list(oracle.goal_tu), t
-        assert float(state.reward) == float(oracle.reward), t
-        assert bool(state.done) == oracle.done, t
-
-        if t % 25 == 0:
-            img_j = np.asarray(observe(state))
-            img_o = oracle.camera_view()
-            np.testing.assert_array_equal(img_j, img_o, err_msg=f"step {t}")
-
-        if bool(state.done):
-            k = state.rng_key
-            state = reset(k)
-            oracle.reset(k)
-        else:
-            # bias toward forward moves so goals are actually reached
-            a = int(rng.choice(4, p=[0.55, 0.05, 0.2, 0.2]))
-            state = step(state, jnp.int32(a))
-            oracle.step(a)
+    parity.single_room(seed, CFG).assert_exact()
 
 
 def test_ray_parity_exhaustive_headings():
-    """Every heading's full ray cast must match the oracle exactly."""
-    game = rcw.SingleRoom(CFG)
-    reset, step, observe, cast = _jit_fns(game)
-    oracle = OracleSingleRoom(CFG)
-    key = jax.random.PRNGKey(9)
-    state = reset(key)
-    oracle.reset(key)
-    for au in range(0, CFG.num_directions, 7):
-        state = state.replace(dir_au=jnp.int32(au))
-        oracle.dir_au = au
-        hits = cast(state)
-        dirs_o, hit_tu_o, hit_dim_o, dist_o = oracle.cast_rays()
-        np.testing.assert_array_equal(np.asarray(hits.ray_dirs), dirs_o)
-        np.testing.assert_array_equal(np.asarray(hits.hit_tu), hit_tu_o)
-        np.testing.assert_array_equal(np.asarray(hits.hit_dim), hit_dim_o)
-        np.testing.assert_array_equal(np.asarray(hits.dist_wu), dist_o)
+    """Every 7th heading's full ray cast must match the oracle exactly."""
+    parity.exhaustive_headings(CFG).assert_exact()
 
 
 def test_tile_grid_parity():

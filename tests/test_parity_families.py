@@ -6,156 +6,32 @@ backend-vs-backend agreement; these tests pin each against an independent
 scalar NumPy oracle (oracle/families.py) the same way tests/test_parity.py
 pins SingleRoom — bit-exact positions, headings, rewards, dones, goal sets,
 block states, and camera images over trajectories with wall hits, goal hits,
-collections and block bounces.
+collections and block bounces.  The drivers live in oracle/parity.py, shared
+with the on-device check in chip_smoke.py.
 """
 
-import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
 
-import raycastworlds_tpu as rcw
-from raycastworlds_tpu.oracle.families import (
-    OracleDynamicRoom,
-    OracleMultiGoal,
-    OracleMultiPlayer,
-    OracleWorld,
-)
-from raycastworlds_tpu.ops import bitmap
-
-
-def _jit_fns(game):
-    return (
-        jax.jit(game.reset_single),
-        jax.jit(game.step_single),
-        jax.jit(game.observe_single),
-    )
-
-
-def _assert_pose(state, oracle, t):
-    assert np.asarray(state.pos_wu).tolist() == oracle.pos_wu.tolist(), t
-    assert int(state.dir_au) == oracle.dir_au, t
-    assert float(state.reward) == float(oracle.reward), t
-    assert bool(state.done) == oracle.done, t
-
-
-def _alive_goal_set(state):
-    tiles = np.asarray(state.goal_tiles)
-    return {(int(i), int(j)) for i, j in tiles if i >= 0}
+from raycastworlds_tpu.oracle import parity
 
 
 @pytest.mark.parametrize("seed", [0, 3])
 @pytest.mark.parametrize("collect_all", [True, False])
 def test_multi_goal_parity(seed, collect_all):
-    cfg = rcw.MultiGoalConfig(
-        num_rays=48, height_camera_view_pu=32,
-        num_goals=4, collect_all=collect_all,
-    )
-    game = rcw.MultiGoalRoom(cfg)
-    reset, step, observe = _jit_fns(game)
-    oracle = OracleMultiGoal(cfg)
-
-    key = jax.random.PRNGKey(seed)
-    state = reset(key)
-    oracle.reset(key)
-
-    rng = np.random.RandomState(seed)
-    for t in range(220):
-        _assert_pose(state, oracle, t)
-        assert _alive_goal_set(state) == set(oracle.goal_tiles), t
-        if t % 20 == 0:
-            np.testing.assert_array_equal(
-                np.asarray(observe(state)), oracle.camera_view(),
-                err_msg=f"step {t}",
-            )
-        if bool(state.done):
-            k = state.rng_key
-            state = reset(k)
-            oracle.reset(k)
-        else:
-            a = int(rng.choice(4, p=[0.55, 0.05, 0.2, 0.2]))
-            state = step(state, jnp.int32(a))
-            oracle.step(a)
+    parity.multi_goal(seed, collect_all).assert_exact()
 
 
 @pytest.mark.parametrize("seed", [1, 4])
 def test_dynamic_room_parity(seed):
-    cfg = rcw.DynamicRoomConfig(
-        num_rays=48, height_camera_view_pu=32,
-        num_blocks=3, block_period=3,
-    )
-    game = rcw.DynamicRoom(cfg)
-    reset, step, observe = _jit_fns(game)
-    oracle = OracleDynamicRoom(cfg)
-
-    key = jax.random.PRNGKey(seed)
-    state = reset(key)
-    oracle.reset(key)
-
-    rng = np.random.RandomState(seed)
-    for t in range(220):
-        _assert_pose(state, oracle, t)
-        assert np.asarray(state.blocks).tolist() == oracle.blocks, t
-        assert np.asarray(state.goal_tu).tolist() == list(oracle.goal_tu), t
-        if t % 20 == 0:
-            np.testing.assert_array_equal(
-                np.asarray(observe(state)), oracle.camera_view(),
-                err_msg=f"step {t}",
-            )
-        if bool(state.done):
-            k = state.rng_key
-            state = reset(k)
-            oracle.reset(k)
-        else:
-            a = int(rng.choice(4, p=[0.55, 0.05, 0.2, 0.2]))
-            state = step(state, jnp.int32(a))
-            oracle.step(a)
+    parity.dynamic_room(seed).assert_exact()
 
 
-@pytest.mark.parametrize(
-    "family,cfg",
-    [
-        ("maze", rcw.MazeConfig(
-            height_tile_map_tu=9, width_tile_map_tu=9,
-            num_rays=48, height_camera_view_pu=32,
-        )),
-        ("random_room", rcw.RandomRoomConfig(
-            height_tile_map_tu=10, width_tile_map_tu=10,
-            num_rays=48, height_camera_view_pu=32,
-        )),
-    ],
-    ids=["maze", "random_room"],
-)
-def test_generated_map_parity(family, cfg):
+@pytest.mark.parametrize("family", ["maze", "random_room"])
+def test_generated_map_parity(family):
     """Maze / RandomRoom: inject the generated map into the oracle and pin
     the dynamics + renderer on arbitrary maps (the generator itself is
     invariant-tested in tests/test_worlds.py)."""
-    game = (rcw.Maze if family == "maze" else rcw.RandomRoom)(cfg)
-    reset, step, observe = _jit_fns(game)
-
-    key = jax.random.PRNGKey(7)
-    state = reset(key)
-    wall_map = np.asarray(
-        bitmap.unpack_bits(state.wall_words, (cfg.H, cfg.W))
-    )
-    oracle = OracleWorld.from_map(
-        cfg, wall_map, np.asarray(state.goal_tu),
-        np.asarray(state.pos_wu), int(state.dir_au),
-    )
-
-    rng = np.random.RandomState(11)
-    for t in range(150):
-        _assert_pose(state, oracle, t)
-        if t % 15 == 0:
-            np.testing.assert_array_equal(
-                np.asarray(observe(state)), oracle.camera_view(),
-                err_msg=f"step {t}",
-            )
-        if bool(state.done):
-            break  # map changes on reset; one generated map is the fixture
-        a = int(rng.choice(4, p=[0.55, 0.05, 0.2, 0.2]))
-        state = step(state, jnp.int32(a))
-        oracle.step(a)
+    parity.generated_map(family).assert_exact()
 
 
 @pytest.mark.parametrize("seed", [2, 5])
@@ -165,127 +41,22 @@ def test_multi_player_parity(seed, num_players):
     simultaneous moves (incl. the circle-circle blocking and lower-index
     candidate tie-break), per-player rewards, episode-level done, and all P
     camera views (others occluding as blocks)."""
-    cfg = rcw.MultiPlayerConfig(
-        num_rays=48, height_camera_view_pu=32, num_players=num_players,
-    )
-    game = rcw.MultiPlayerRoom(cfg)
-    reset, step, observe = _jit_fns(game)
-    oracle = OracleMultiPlayer(cfg)
-
-    key = jax.random.PRNGKey(seed)
-    state = reset(key)
-    oracle.reset(key)
-
-    rng = np.random.RandomState(seed)
-    for t in range(180):
-        assert np.asarray(state.pos_wu).tolist() == oracle.ppos.tolist(), t
-        assert np.asarray(state.dir_au).tolist() == oracle.pdir, t
-        assert np.asarray(state.reward).tolist() == oracle.rewards.tolist(), t
-        assert bool(state.done) == oracle.done, t
-        assert np.asarray(state.goal_tu).tolist() == list(oracle.goal_tu), t
-        if t % 18 == 0:
-            np.testing.assert_array_equal(
-                np.asarray(observe(state)), oracle.camera_views(),
-                err_msg=f"step {t}",
-            )
-        if bool(state.done):
-            k = state.rng_key
-            state = reset(k)
-            oracle.reset(k)
-        else:
-            # forward-heavy actions drive wall hits, goal hits and
-            # player-player blocking
-            a = rng.choice(4, size=num_players, p=[0.6, 0.05, 0.175, 0.175])
-            state = step(state, jnp.asarray(a, jnp.int32))
-            oracle.step([int(x) for x in a])
+    parity.multi_player(seed, num_players).assert_exact()
 
 
 def test_multi_player_continuous_parity():
     """Continuous headings x multi-player (the last oracle-less combination):
     bit-exact float headings, positions, rewards and all P camera frames vs
     the scalar OracleMultiPlayerContinuous."""
-    from raycastworlds_tpu.oracle.families import OracleMultiPlayerContinuous
-
-    cfg = rcw.MultiPlayerConfig(
-        num_rays=48, height_camera_view_pu=32, num_players=2,
-        continuous_heading=True, turn_increment_au=0.7,
-    )
-    game = rcw.MultiPlayerRoom(cfg)
-    reset, step, observe = _jit_fns(game)
-    oracle = OracleMultiPlayerContinuous(cfg)
-
-    key = jax.random.PRNGKey(8)
-    state = reset(key)
-    oracle.reset(key)
-
-    rng = np.random.RandomState(8)
-    for t in range(120):
-        assert np.asarray(state.pos_wu).tolist() == oracle.ppos.tolist(), t
-        assert [np.float32(x) for x in np.asarray(state.dir_au)] == oracle.pdir, t
-        assert np.asarray(state.reward).tolist() == oracle.rewards.tolist(), t
-        assert bool(state.done) == oracle.done, t
-        if t % 15 == 0:
-            np.testing.assert_array_equal(
-                np.asarray(observe(state)), oracle.camera_views(),
-                err_msg=f"step {t}",
-            )
-        if bool(state.done):
-            k = state.rng_key
-            state = reset(k)
-            oracle.reset(k)
-        else:
-            a = rng.choice(4, size=2, p=[0.6, 0.05, 0.175, 0.175])
-            state = step(state, jnp.asarray(a, jnp.int32))
-            oracle.step([int(x) for x in a])
+    parity.multi_player_continuous().assert_exact()
 
 
 def test_multi_player_parity_invisible_players():
     """players_visible=False: cameras show no blocks; dynamics unchanged."""
-    cfg = rcw.MultiPlayerConfig(
-        num_rays=32, height_camera_view_pu=24, num_players=2,
-        players_visible=False,
-    )
-    game = rcw.MultiPlayerRoom(cfg)
-    reset, step, observe = _jit_fns(game)
-    oracle = OracleMultiPlayer(cfg)
-    key = jax.random.PRNGKey(9)
-    state = reset(key)
-    oracle.reset(key)
-    rng = np.random.RandomState(9)
-    for t in range(60):
-        if t % 10 == 0:
-            np.testing.assert_array_equal(
-                np.asarray(observe(state)), oracle.camera_views(),
-                err_msg=f"step {t}",
-            )
-        a = rng.choice(4, size=2, p=[0.6, 0.05, 0.175, 0.175])
-        state = step(state, jnp.asarray(a, jnp.int32))
-        oracle.step([int(x) for x in a])
-        assert np.asarray(state.pos_wu).tolist() == oracle.ppos.tolist(), t
+    parity.multi_player_invisible().assert_exact()
 
 
 @pytest.mark.parametrize("texture", ["checker", "brick", "xor"])
 def test_texture_parity(texture):
     """Procedural wall texturing: per-pixel parity vs the scalar oracle."""
-    cfg = rcw.EnvConfig(
-        num_rays=48, height_camera_view_pu=32,
-        wall_texture=texture, texture_cells=8,
-    )
-    game = rcw.SingleRoom(cfg)
-    reset, step, observe = _jit_fns(game)
-    oracle = OracleWorld(cfg)
-
-    key = jax.random.PRNGKey(13)
-    state = reset(key)
-    oracle.reset(key)
-
-    rng = np.random.RandomState(13)
-    for t in range(60):
-        if t % 6 == 0:
-            np.testing.assert_array_equal(
-                np.asarray(observe(state)), oracle.camera_view(),
-                err_msg=f"step {t}",
-            )
-        a = int(rng.choice(4, p=[0.5, 0.1, 0.2, 0.2]))
-        state = step(state, jnp.int32(a))
-        oracle.step(a)
+    parity.texture(texture).assert_exact()

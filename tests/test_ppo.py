@@ -310,7 +310,7 @@ def test_recurrent_mesh_divisibility_checks():
 
 
 def test_mlp_trunk_trains():
-    """The flat-pixel mlp trunk (max-throughput, docs/RESULTS.md round 5)
+    """The flat-pixel mlp trunk (the max-throughput trunk)
     trains with finite losses and has the expected two hidden layers."""
     cfg = rcw.EnvConfig(
         num_rays=16, height_camera_view_pu=16, obs_type="camera_gray"

@@ -150,32 +150,6 @@ def test_analytic_backend_matches_dda():
         )
 
 
-def test_pallas_backend_bit_exact_vs_scan():
-    """The Pallas kernel replays the scan DDA's float sequence exactly
-    (interpreter mode on CPU)."""
-    import raycastworlds_tpu as rcw
-
-    cfg_scan = EnvConfig(
-        num_rays=64, height_camera_view_pu=32, raycast_backend="scan"
-    )
-    cfg_pl = EnvConfig(
-        num_rays=64, height_camera_view_pu=32, raycast_backend="pallas"
-    )
-    g_scan = rcw.SingleRoom(cfg_scan)
-    g_pl = rcw.SingleRoom(cfg_pl)
-    keys = jax.random.split(jax.random.PRNGKey(5), 8)
-    state = jax.jit(jax.vmap(g_scan.reset_single))(keys)
-    a = jax.jit(g_scan.cast_batch)(state)
-    b = jax.jit(g_pl.cast_batch)(state)
-    np.testing.assert_array_equal(np.asarray(a.hit_tu), np.asarray(b.hit_tu))
-    np.testing.assert_array_equal(np.asarray(a.hit_dim), np.asarray(b.hit_dim))
-    np.testing.assert_array_equal(np.asarray(a.dist_wu), np.asarray(b.dist_wu))
-    # and through the full observation path
-    obs_a = jax.jit(g_scan.observe_batch)(state)
-    obs_b = jax.jit(g_pl.observe_batch)(state)
-    np.testing.assert_array_equal(np.asarray(obs_a), np.asarray(obs_b))
-
-
 def test_flat_batched_scan_bit_exact_vs_vmapped():
     import raycastworlds_tpu as rcw
     from raycastworlds_tpu.ops import bitmap

@@ -1,7 +1,7 @@
 """Empty-tile sampler: blocked prefix-count exactness and large-map scaling.
 
 The reference rejection-samples empty tiles host-side
-(/root/reference/src/utils.jl:23-58); the TPU design replaces it with a
+(/root/reference/src/utils.jl:23-58); the batched design replaces it with a
 masked categorical via cumsum inversion (ops/sampling.py).  These tests pin
 (a) the blocked O(n)-memory prefix count to the mathematically exact cumsum
 on every size class (below / at / above / non-multiple of the block), and

@@ -72,7 +72,7 @@ def test_play_headless_renders_one_frame(capsys):
 
 def test_window_degrades_headless(monkeypatch):
     # No $DISPLAY: the X11 path must report unavailable and open None —
-    # TPU pod hosts are headless and play() falls back to the terminal.
+    # headless accelerator hosts fall back to the terminal in play().
     monkeypatch.delenv("DISPLAY", raising=False)
     assert viewer.Window.available() is False
     assert viewer.Window.open("t", 16, 16) is None
